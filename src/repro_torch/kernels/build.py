@@ -1,0 +1,126 @@
+"""Build and load the hand-written Hopper kernels.
+
+Each CUDA source under ``csrc/`` has a plain C interface and is compiled on
+first use by its own ``nvcc`` (all sources in parallel) into a shared
+library under ``<repo>/build/kernels/``, named by a hash of the source and
+flags so an edited source is rebuilt.  The libraries are loaded with
+``ctypes``; every entry point takes device pointers and the CUDA stream as
+``c_void_p`` and returns ``cudaGetLastError()``, which :func:`check`
+turns into an exception.
+
+Nothing here runs at import: the CPU tests import every module on hosts
+that have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: the sources, by library name
+SOURCES = ("uniconv", "group_norm", "flash_attention")
+
+#: C entry points: name -> (library, argtypes)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ENTRY_POINTS = {
+    # x, w, bias (nullable), out, B, H, W, Cin, Cout, K, stride, stream
+    "uniconv_f32": ("uniconv", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # x, scale, bias, out, partials, stats, B, L, C, G, chunk_rows, eps, silu, stream
+    "group_norm_f32": ("group_norm", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    # q, k, v, out, B, H, Hkv, Sq, Skv, Dh, causal, window, softcap, scale, stream
+    "flash_attention_f32": (
+        "flash_attention",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    ),
+}
+
+_FUNCS: dict[str, ctypes._CFuncPtr] = {}
+#: ptxas resource report of the last build, by library
+BUILD_LOG: dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all() -> float:
+    """Compile every source that has no up-to-date library; returns seconds."""
+    t0 = time.perf_counter()
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in todo:
+        tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (
+            tmp,
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+        )
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        BUILD_LOG[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, _lib_path(name))
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def get(fn: str) -> ctypes._CFuncPtr:
+    """The C entry point ``fn``, building and loading its library on first use."""
+    if fn not in _FUNCS:
+        lib_name, argtypes = ENTRY_POINTS[fn]
+        build_all()
+        lib = ctypes.CDLL(str(_lib_path(lib_name)))
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _FUNCS[fn] = f
+    return _FUNCS[fn]
+
+
+def check(fn: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {fn} failed: cudaError {err}")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda_f32(name: str, *tensors) -> None:
+    """Wrapper-side checks: device, dtype and contiguity of kernel operands."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: every operand must be on one CUDA device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expects float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
