@@ -11,11 +11,18 @@ version.  Phases:
 3. kernels against plain: log every distinct shape the ``cuda`` backend
    sees in one FULL micro-step, one SKETCH micro-step and one VAE decode;
    at each, compare kernel and plain version on the card and time kernel,
-   plain version and one PyTorch library call (``F.conv2d``,
+   plain version and one PyTorch library call on the device alone, with
+   the calls queued behind a spin so no host gap enters (``F.conv2d``,
    ``F.group_norm`` + ``F.silu``, ``F.scaled_dot_product_attention``, used as
    yardsticks only); check flash attention's causal/window/softcap/GQA
    options at one small shape;
-4. serve 4 requests (two phase-aware, two all-FULL) through the engine with
+4. registry kernels: drive ``stream_norm`` and ``fused_matmul``, which no
+   served path runs, through ``repro_torch.kernels.KERNEL_REGISTRY`` at
+   sd_v14's full-width shapes (counting their launches), then hold each
+   result against the plain version and time kernel, plain version and one
+   PyTorch library call (``F.layer_norm`` / ``F.rms_norm``; ``torch.mm`` /
+   ``torch.addmm`` with the activation as a second call);
+5. serve 4 requests (two phase-aware, two all-FULL) through the engine with
    the ``cuda`` backend, counting kernel launches, then the same stream with
    the ``eager`` backend, and compare the latents.
 
@@ -36,9 +43,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 without tensor cores
+#: H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 without
+#: tensor cores, bfloat16 dense on tensor cores
 MEM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
 #: kernel-vs-plain tolerance, relative to max(1, max |plain|): float32 sums in
 #: another order (conv over up to 9*2560 terms, group norm over up to 262144)
 TOL = {"uniconv": 2e-5, "stream_group_norm": 2e-5, "flash_attention": 1e-4}
@@ -59,6 +68,46 @@ SOURCES = {
         "src/repro/kernels/flash_attention/kernel.py:90",
     ),
 }
+#: the kernels no served path runs, reached through KERNEL_REGISTRY (phase 4)
+REGISTRY_SOURCES = {
+    "stream_norm": (
+        "src/repro_torch/kernels/csrc/stream_norm.cu", "src/repro/kernels/stream_norm/kernel.py:44",
+    ),
+    "fused_matmul": (
+        "src/repro_torch/kernels/csrc/fused_matmul.cu",
+        "src/repro/kernels/fused_matmul/kernel.py:80",
+    ),
+}
+#: phase 4 shapes: where sd_v14's U-Net computes the same function outside
+#: Pallas, at CFG batch 4 (2 lanes; 16384 / 4096 / 1024 tokens at levels 0-2).
+#: stream_norm: (label, M, D, mode, eps, dtype); rmsnorm is passed a bias,
+#: which it ignores
+NORM_CASES = [
+    ("ln level 0", 16384, 320, "layernorm", 1e-5, "float32"),
+    ("ln level 1", 4096, 640, "layernorm", 1e-5, "float32"),
+    ("ln level 2", 1024, 1280, "layernorm", 1e-5, "float32"),
+    ("rms level 0", 16384, 320, "rmsnorm", 1e-5, "float32"),
+    ("rms level 1", 4096, 640, "rmsnorm", 1e-5, "float32"),
+    ("rms level 2", 1024, 1280, "rmsnorm", 1e-5, "float32"),
+    ("ln level 0 bf16", 16384, 320, "layernorm", 1e-5, "bfloat16"),
+    ("ragged", 100, 33, "layernorm", 1e-6, "float32"),
+]
+#: fused_matmul: (label, M, K, N, epilogue, with_stats, dtype)
+MATMUL_CASES = [
+    ("ff_in", 16384, 320, 2560, "none", False, "float32"),
+    ("ff_out", 16384, 1280, 320, "none", False, "float32"),
+    ("self_o + ln2 stats", 16384, 320, 320, "none", True, "float32"),
+    ("GEGLU gate half", 16384, 320, 1280, "gelu", False, "float32"),
+    ("time MLP w1", 4, 320, 1280, "silu", False, "float32"),
+    ("GEGLU gate half bf16", 16384, 320, 1280, "gelu", False, "bfloat16"),
+    ("ragged", 96, 160, 224, "bias", True, "float32"),
+]
+#: phase 4 tolerances, relative to max(1, max |plain|): float32 sums in another
+#: order (norm rows of up to 1280, products over K <= 1280); a bfloat16 output
+#: may differ by one bfloat16 step (2**-7 of the value) where the float32
+#: sums round to either side.  Stats: rtol / atol, as the JAX package's test.
+REG_TOL = {"stream_norm": 2e-5, "fused_matmul": 1e-4, "bfloat16": 2.0**-7}
+STATS_RTOL, STATS_ATOL = 1e-4, 1e-3
 
 
 def _phase(name: str, t0: float) -> float:
@@ -67,10 +116,22 @@ def _phase(name: str, t0: float) -> float:
     return now
 
 
-def _ms(torch, fn, reps: int = 5) -> float:
+def _ms(torch, fn, reps: int = 5, queued: bool = True) -> float:
+    """Mean ms of ``reps`` back-to-back calls of ``fn`` between two CUDA events.
+
+    With ``queued`` the card first spins (``torch.cuda._sleep``) for longer
+    than the host takes to enqueue every call, so the events time the device
+    work alone and not the host's launch overhead, which would otherwise set
+    the time of a kernel of a few microseconds."""
     fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        t = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int((reps * host_s + 1e-3) * 2e9))  # cycles: that long at <= 2 GHz
     a.record()
     for _ in range(reps):
         fn()
@@ -167,6 +228,115 @@ def _check_shape(torch, F, ops, key, gen):
     )
 
 
+def _registry_inputs(torch, gen, name, case):
+    """(args, kwargs, library call) of one phase-4 case."""
+    F = torch.nn.functional
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    if name == "stream_norm":
+        _, m, d, mode, eps, dt = case
+        dtype = getattr(torch, dt)
+        x, sc, bi = (r(m, d) * 2 + 0.5).to(dtype), r(d) * 0.1 + 1, r(d) * 0.1
+        sc_l, bi_l = sc.to(dtype), bi.to(dtype)
+        if mode == "layernorm":
+            lib = lambda: F.layer_norm(x, (d,), sc_l, bi_l, eps)  # noqa: E731
+        else:
+            lib = lambda: F.rms_norm(x, (d,), sc_l, eps)  # noqa: E731
+        return (x, sc, bi), dict(mode=mode, eps=eps), lib
+    _, m, k, n, epilogue, with_stats, dt = case
+    dtype = getattr(torch, dt)
+    a, b, bias = r(m, k).to(dtype), (r(k, n) * k**-0.5).to(dtype), r(n).to(dtype)
+    act = {"gelu": F.gelu, "silu": F.silu}.get(epilogue)  # F.gelu is the erf form
+    if epilogue == "none":
+        lib = lambda: torch.mm(a, b)  # noqa: E731
+    elif act is None:
+        lib = lambda: torch.addmm(bias, a, b)  # noqa: E731
+    else:
+        lib = lambda: act(torch.addmm(bias, a, b))  # noqa: E731
+    return (a, b, bias), dict(epilogue=epilogue, with_stats=with_stats), lib
+
+
+def _registry_cost(name, case):
+    """(bytes_ms, ops_ms) of one phase-4 case: each input read once, each
+    output written once, against the peak rate of the operands' type."""
+    if name == "stream_norm":
+        _, m, d, _, _, dt = case
+        size = 2 if dt == "bfloat16" else 4
+        return (2 * m * d * size + 2 * d * 4) / MEM_BYTES_S * 1e3, 8 * m * d / FP32_FLOP_S * 1e3
+    _, m, k, n, epilogue, with_stats, dt = case
+    size, rate = (2, BF16_FLOP_S) if dt == "bfloat16" else (4, FP32_FLOP_S)
+    nbytes = (m * k + k * n + m * n) * size + (n * 4 if epilogue != "none" else 0)
+    nbytes += 8 * m if with_stats else 0
+    return nbytes / MEM_BYTES_S * 1e3, 2 * m * n * k / rate * 1e3
+
+
+def _registry_phase(torch, K, gen):
+    """Drive the registry kernels once (counted), then check and time them.
+    Returns (per-kernel totals, rows, failures)."""
+    cases = [("stream_norm", c) for c in NORM_CASES] + [("fused_matmul", c) for c in MATMUL_CASES]
+    inputs = [_registry_inputs(torch, gen, name, case) for name, case in cases]
+    K.reset_launch_counts()
+    with torch.no_grad():
+        outs = [K.KERNEL_REGISTRY[name][0](*args, **kw)
+                for (name, _), (args, kw, _) in zip(cases, inputs)]
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    failures = [f"{name} was never launched through KERNEL_REGISTRY"
+                for name in REGISTRY_SOURCES if launches[name] <= 0]
+    totals = {name: dict(launches=launches[name], err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                         bytes_ms=0.0, ops_ms=0.0) for name in REGISTRY_SOURCES}
+    rows = []
+    with torch.no_grad():
+        for (name, case), (args, kw, lib), got in zip(cases, inputs, outs):
+            kern, plain = K.KERNEL_REGISTRY[name]
+            ref = plain(*args, **kw)
+            stats_err = None
+            if name == "fused_matmul":
+                (got, stats), (ref, ref_stats) = got, ref
+                if stats is not None:
+                    diff = (stats - ref_stats).abs()
+                    stats_err = float(diff.max())
+                    if bool((diff > STATS_ATOL + STATS_RTOL * ref_stats.abs()).any()):
+                        failures.append(f"{name} {case[0]}: stats differ by {stats_err}")
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            rel = REG_TOL["bfloat16" if got.dtype == torch.bfloat16 else name]
+            tol = rel * max(1.0, float(ref.float().abs().max()))
+            del got, ref
+            if not err <= tol:
+                failures.append(f"{name} {case[0]}: max |kernel - plain| {err} > {tol}")
+            ms = _ms(torch, lambda: kern(*args, **kw))
+            pms = _ms(torch, lambda: plain(*args, **kw))
+            lms = _ms(torch, lib)
+            bytes_ms, ops_ms = _registry_cost(name, case)
+            row = dict(kernel=name, case=list(case), max_abs_err=err, tol=tol,
+                       stats_err=stats_err, ms=ms, plain_ms=pms, library_ms=lms,
+                       bytes_ms=bytes_ms, ops_ms=ops_ms)
+            rows.append(row)
+            tot = totals[name]
+            tot["err"] = max(tot["err"], err)
+            for f in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
+                tot[f] += row[f]
+            print(f"[chip_smoke]   {name} {case}: err {err:.3g} (tol {tol:.3g})"
+                  + ("" if stats_err is None else f" stats err {stats_err:.3g}")
+                  + f" kernel {ms:.4f} ms plain {pms:.4f} ms library {lms:.4f} ms"
+                  f" bound {max(bytes_ms, ops_ms):.4f} ms")
+    for name, v in totals.items():
+        print(f"[chip_smoke]   {name}: {v['launches']} launches, kernel {v['ms']:.3f} ms, "
+              f"plain {v['plain_ms']:.3f} ms, library {v['library_ms']:.3f} ms, bound "
+              f"{max(v['bytes_ms'], v['ops_ms']):.3f} ms")
+    return totals, rows, failures
+
+
+def _kernel_entry(name, src, rep, launches, tot) -> dict:
+    return dict(
+        name=name, route="cuda", source=src, replaces=rep, launches=launches,
+        max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+        bound_ms=max(tot["bytes_ms"], tot["ops_ms"]),
+        bound_by="bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+        library_ms=tot["library_ms"],
+    )
+
+
 def main() -> int:
     try:
         import torch
@@ -256,7 +426,7 @@ def main() -> int:
             log.phase = phase
             run(log.backend)
             pass_ms[phase] = {
-                name: _ms(torch, lambda: run(bk), reps=3)
+                name: _ms(torch, lambda: run(bk), reps=3, queued=False)
                 for name, bk in (("cuda", CUDA), ("eager", EAGER))
             }
         del feat
@@ -315,7 +485,14 @@ def main() -> int:
         raise AssertionError("kernel disagrees with its plain version:\n" + "\n".join(failures))
     t0 = _phase("kernels against plain", t0)
 
-    # 4. serve --------------------------------------------------------------------
+    # 4. the registry kernels off the served path -----------------------------------
+    reg_totals, reg_rows, reg_failures = _registry_phase(torch, K, gen)
+    detail["registry"] = reg_rows
+    if reg_failures:
+        raise AssertionError("registry kernels:\n" + "\n".join(reg_failures))
+    t0 = _phase("registry kernels", t0)
+
+    # 5. serve --------------------------------------------------------------------
     def requests():
         out = []
         for i in range(4):
@@ -351,7 +528,7 @@ def main() -> int:
         t0 = _phase(f"serve {backend}", t0)
     done_c, summary_c, launches = results["cuda"]
     done_e, summary_e, _ = results["eager"]
-    if any(v <= 0 for v in launches.values()):
+    if any(launches[name] <= 0 for name in SOURCES):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     scale = max(1.0, max(float(np.abs(d.latent).max()) for d in done_e.values()))
     serve_err = max(float(np.abs(done_c[r].latent - done_e[r].latent).max()) for r in done_e)
@@ -364,17 +541,11 @@ def main() -> int:
         raise AssertionError(f"cuda latents differ from eager by {serve_err}")
 
     kernels = [
-        dict(
-            name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
-            max_abs_err=totals[name]["err"], ms=totals[name]["ms"],
-            plain_ms=totals[name]["plain_ms"],
-            bound_ms=max(totals[name]["bytes_ms"], totals[name]["ops_ms"]),
-            bound_by=(
-                "bytes" if totals[name]["bytes_ms"] >= totals[name]["ops_ms"] else "operations"
-            ),
-            library_ms=totals[name]["library_ms"],
-        )
+        _kernel_entry(name, src, rep, launches[name], totals[name])
         for name, (src, rep) in SOURCES.items()
+    ] + [
+        _kernel_entry(name, src, rep, reg_totals[name]["launches"], reg_totals[name])
+        for name, (src, rep) in REGISTRY_SOURCES.items()
     ]
     detail.update(card=card, kernels=kernels, seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"

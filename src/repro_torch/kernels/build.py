@@ -29,7 +29,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: the sources, by library name
-SOURCES = ("uniconv", "group_norm", "flash_attention")
+SOURCES = ("uniconv", "group_norm", "flash_attention", "stream_norm", "fused_matmul")
 
 #: C entry points: name -> (library, argtypes)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -43,7 +43,16 @@ ENTRY_POINTS = {
         "flash_attention",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     ),
+    # x, scale, bias (nullable), out, M, D, eps, rms, stream
+    "stream_norm_f32": ("stream_norm", [_P, _P, _P, _P, _I, _I, _F, _I, _P]),
+    "stream_norm_bf16": ("stream_norm", [_P, _P, _P, _P, _I, _I, _F, _I, _P]),
+    # a, b, bias (nullable), out, partials, stats (both nullable), M, N, K, epilogue, stream
+    "fused_matmul_f32": ("fused_matmul", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "fused_matmul_bf16": ("fused_matmul", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
+
+#: suffix of the entry point that takes each operand type
+DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _FUNCS: dict[str, ctypes._CFuncPtr] = {}
 #: ptxas resource report of the last build, by library
@@ -114,13 +123,14 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda_f32(name: str, *tensors) -> None:
-    """Wrapper-side checks: device, dtype and contiguity of kernel operands."""
+def require_cuda(name: str, *tensors, dtypes=(torch.float32,)) -> None:
+    """Wrapper-side checks: device, dtype (one of ``dtypes``) and contiguity
+    of kernel operands."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: every operand must be on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expects float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: expects one of {list(dtypes)}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")

@@ -91,7 +91,7 @@ def flash_attention(
         raise ValueError(
             f"flash_attention: q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}"
         )
-    build.require_cuda_f32("flash_attention", q, k, v)
+    build.require_cuda("flash_attention", q, k, v)
     out = torch.empty_like(q)
     fn = build.get("flash_attention_f32")
     err = fn(

@@ -1,5 +1,16 @@
-"""Group norm over the (L, C) layout with an optional fused SiLU epilogue.
+"""One-pass norms: the row layer/rms norm and the group norm over the
+(L, C) layout with an optional fused SiLU epilogue.
 
+* :func:`stream_norm_plain` is the plain PyTorch version of
+  ``repro/kernels/stream_norm/kernel.py::_norm_kernel``: one-pass float32
+  sum and sum of squares per row, clamped variance, ``rsqrt``; the bias is
+  added in layernorm mode only.
+* :func:`stream_norm` is the wrapper of the hand-written Hopper kernel
+  (``kernels/csrc/stream_norm.cu``), which replaces
+  ``repro/kernels/stream_norm/kernel.py::stream_norm``: one block per row,
+  the row cached in shared memory between statistics and apply, so x is read
+  once.  It takes float32 or bfloat16 and takes the plain version only for a
+  tensor on the CPU.
 * :func:`group_norm` is the plain PyTorch version of
   ``repro/models/unet.py::group_norm`` (one-pass mean and E[x^2], clamped
   variance); :func:`stream_group_norm_plain` adds the SiLU.
@@ -18,6 +29,62 @@ from repro_torch.kernels import build
 
 #: rows of one batch element per block of the statistics pass
 CHUNK_ROWS = 64
+#: the row norms of :func:`stream_norm`
+MODES = ("layernorm", "rmsnorm")
+
+
+def stream_norm_plain(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None, *,
+    mode: str = "layernorm", eps: float = 1e-6,
+) -> torch.Tensor:
+    """Norm over the last dim of x; statistics and arithmetic in float32,
+    the result in ``x.dtype``.  Rmsnorm ignores ``bias``."""
+    if mode not in MODES:
+        raise ValueError(f"stream_norm: mode {mode!r}, expected one of {list(MODES)}")
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    s = xf.sum(dim=-1, keepdim=True) / d
+    sq = (xf * xf).sum(dim=-1, keepdim=True) / d
+    if mode == "layernorm":
+        var = torch.clamp(sq - s * s, min=0.0)
+        y = (xf - s) * torch.rsqrt(var + eps)
+    else:
+        y = xf * torch.rsqrt(sq + eps)
+    y = y * scale.float()
+    if mode == "layernorm" and bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def stream_norm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None = None, *,
+    mode: str = "layernorm", eps: float = 1e-6,
+) -> torch.Tensor:
+    """Row layer/rms norm through the Hopper kernel (plain version on a CPU tensor)."""
+    if mode not in MODES:
+        raise ValueError(f"stream_norm: mode {mode!r}, expected one of {list(MODES)}")
+    if x.device.type == "cpu":
+        return stream_norm_plain(x, scale, bias, mode=mode, eps=eps)
+    if (x.dim() == 0 or x.numel() == 0 or scale.shape != x.shape[-1:]
+            or (bias is not None and bias.shape != x.shape[-1:])):
+        raise ValueError(f"stream_norm: x={tuple(x.shape)} scale={tuple(scale.shape)}")
+    d = x.shape[-1]
+    sc = scale.to(torch.float32).contiguous()
+    bi = None if bias is None or mode == "rmsnorm" else bias.to(torch.float32).contiguous()
+    build.require_cuda("stream_norm", x, sc, *(() if bi is None else (bi,)),
+                       dtypes=tuple(build.DTYPE_SUFFIX))
+    out = torch.empty_like(x)
+    fn_name = f"stream_norm_{build.DTYPE_SUFFIX[x.dtype]}"
+    err = build.get(fn_name)(
+        x.data_ptr(), sc.data_ptr(), None if bi is None else bi.data_ptr(), out.data_ptr(),
+        x.numel() // d, d, float(eps), int(mode == "rmsnorm"), build.stream_ptr(x.device),
+    )
+    build.check(fn_name, err)
+    stream_norm.launches += 1
+    return out
+
+
+stream_norm.launches = 0
 
 
 def group_norm(x: torch.Tensor, p: dict, groups: int, eps: float = 1e-5) -> torch.Tensor:
@@ -52,7 +119,7 @@ def stream_group_norm(
         raise ValueError(
             f"stream_group_norm: x={tuple(x.shape)} scale={tuple(scale.shape)} groups={groups}"
         )
-    build.require_cuda_f32("stream_group_norm", x, scale, bias)
+    build.require_cuda("stream_group_norm", x, scale, bias)
     n_chunks = -(-l // CHUNK_ROWS)
     out = torch.empty_like(x)
     partials = torch.empty((bsz * groups * n_chunks * 2,), device=x.device, dtype=torch.float32)

@@ -51,6 +51,18 @@ def uniconv_apply(
     return out
 
 
+def uniconv_plain(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None,
+    hw: tuple[int, int],
+    ksize: int,
+    stride: int = 1,
+) -> torch.Tensor:
+    """:func:`uniconv_apply` in the argument order of :func:`uniconv`."""
+    return uniconv_apply(w, b, x, hw, ksize, stride)
+
+
 def uniconv(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -61,14 +73,14 @@ def uniconv(
 ) -> torch.Tensor:
     """Uni-conv through the Hopper kernel (the plain version on a CPU tensor)."""
     if x.device.type == "cpu":
-        return uniconv_apply(w, b, x, hw, ksize, stride)
+        return uniconv_plain(x, w, b, hw, ksize, stride)
     h, wdim = hw
     bsz, l, cin = x.shape
     nf, wcin, cout = w.shape
     if l != h * wdim or nf != ksize * ksize or wcin != cin or stride not in (1, 2):
         raise ValueError(f"uniconv: bad shapes x={tuple(x.shape)} w={tuple(w.shape)} hw={hw}")
     operands = (x, w) if b is None else (x, w, b)
-    build.require_cuda_f32("uniconv", *operands)
+    build.require_cuda("uniconv", *operands)
     if b is not None and b.shape != (cout,):
         raise ValueError(f"uniconv: bias shape {tuple(b.shape)}, want ({cout},)")
     ho, wo = -(-h // stride), -(-wdim // stride)

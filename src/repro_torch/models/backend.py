@@ -7,8 +7,9 @@ per engine:
 
 * ``"eager"``: the plain PyTorch versions, op for op the JAX package's
   ``"xla"`` backend;
-* ``"cuda"``: the hand-written Hopper kernels of :mod:`repro_torch.kernels`,
-  the twin of the JAX package's ``"pallas"`` backend.  On a CUDA tensor a
+* ``"cuda"``: the hand-written Hopper kernels of
+  :data:`repro_torch.kernels.KERNEL_REGISTRY`, built from the registry as the
+  JAX package builds its ``"pallas"`` backend.  On a CUDA tensor a
   wrapper launches its kernel or raises; it takes the plain version only
   for a tensor on the CPU.
 """
@@ -17,9 +18,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.kernels.flash_attention.ops import flash_attention, mha
-from repro_torch.kernels.stream_norm.ops import stream_group_norm, stream_group_norm_plain
-from repro_torch.kernels.uniconv.ops import uniconv, uniconv_apply
+from repro_torch.kernels import KERNEL_REGISTRY
+from repro_torch.kernels.flash_attention.ops import mha
+from repro_torch.kernels.stream_norm.ops import stream_group_norm_plain
+from repro_torch.kernels.uniconv.ops import uniconv_apply
 
 #: the selectable kernel backends
 BACKENDS = ("eager", "cuda")
@@ -51,26 +53,31 @@ def _eager_group_norm(x, p, groups, *, eps=1e-5, silu=False):
     return stream_group_norm_plain(x, p["scale"], p["bias"], groups=groups, eps=eps, silu=silu)
 
 
-def _cuda_conv(w, b, x, hw, ksize, stride=1):
-    return uniconv(x, w, b, hw, ksize, stride)
+def _make_cuda() -> KernelBackend:
+    uniconv = KERNEL_REGISTRY["uniconv"][0]
+    stream_group_norm = KERNEL_REGISTRY["stream_group_norm"][0]
+    flash_attention = KERNEL_REGISTRY["flash_attention"][0]
 
+    def conv(w, b, x, hw, ksize, stride=1):
+        return uniconv(x, w, b, hw, ksize, stride)
 
-def _cuda_group_norm(x, p, groups, *, eps=1e-5, silu=False):
-    return stream_group_norm(x, p["scale"], p["bias"], groups=groups, eps=eps, silu=silu)
+    def group_norm(x, p, groups, *, eps=1e-5, silu=False):
+        return stream_group_norm(x, p["scale"], p["bias"], groups=groups, eps=eps, silu=silu)
 
+    def attention(q, k, v, o_proj, n_heads):
+        # the kernel applies the 1/sqrt(dh) scale itself, so q goes in unscaled
+        bsz, lq, c = q.shape
+        out = flash_attention(
+            _split_heads(q, n_heads), _split_heads(k, n_heads), _split_heads(v, n_heads),
+            causal=False,
+        )
+        return out.transpose(1, 2).reshape(bsz, lq, c) @ o_proj
 
-def _cuda_attention(q, k, v, o_proj, n_heads):
-    # the kernel applies the 1/sqrt(dh) scale itself, so q goes in unscaled
-    bsz, lq, c = q.shape
-    out = flash_attention(
-        _split_heads(q, n_heads), _split_heads(k, n_heads), _split_heads(v, n_heads),
-        causal=False,
-    )
-    return out.transpose(1, 2).reshape(bsz, lq, c) @ o_proj
+    return KernelBackend("cuda", conv, group_norm, attention)
 
 
 EAGER = KernelBackend("eager", uniconv_apply, _eager_group_norm, mha)
-CUDA = KernelBackend("cuda", _cuda_conv, _cuda_group_norm, _cuda_attention)
+CUDA = _make_cuda()
 
 
 def resolve_backend(backend: Any = None) -> KernelBackend:

@@ -19,7 +19,13 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
-from repro_torch.kernels.stream_norm.ops import stream_group_norm, stream_group_norm_plain
+from repro_torch.kernels.fused_matmul.ops import fused_matmul, fused_matmul_plain
+from repro_torch.kernels.stream_norm.ops import (
+    stream_group_norm,
+    stream_group_norm_plain,
+    stream_norm,
+    stream_norm_plain,
+)
 from repro_torch.kernels.uniconv.ops import uniconv, uniconv_apply
 from repro_torch.models.backend import resolve_backend
 
@@ -140,7 +146,10 @@ def cuda_device():
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain(cuda_device):
     """Each kernel against its plain version on the card, at sd_toy shapes
-    and the ragged cases (Cin=4, Cout=3, stride 2, KV tail 77, Dh=40)."""
+    and the ragged cases (Cin=4, Cout=3, stride 2, KV tail 77, Dh=40; row
+    norm D=33 and rows wider than the shared-memory cache; product
+    (96, 160, 224)), float32 and bfloat16.  A bfloat16 output may differ by
+    one bfloat16 step (rtol 2**-7) where the float32 sums differ in order."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     r = lambda *s: torch.randn(s, generator=gen, device=cuda_device)  # noqa: E731
     for b, side, cin, cout, k, stride in [
@@ -169,3 +178,35 @@ def test_cuda_kernels_match_plain(cuda_device):
             flash_attention(q, k, v, **opts), flash_attention_ref(q, k, v, **opts),
             atol=1e-4, rtol=1e-4,
         )
+    bf16 = torch.bfloat16
+    for shape, dtype in [
+        ((2, 64, 320), torch.float32), ((100, 33), torch.float32), ((3, 12301), torch.float32),
+        ((2, 16384), torch.float32), ((64, 320), bf16), ((100, 33), bf16),
+    ]:
+        d = shape[-1]
+        x, sc, bi = (r(*shape) * 2 + 0.5).to(dtype), r(d), r(d)
+        for mode, eps in (("layernorm", 1e-5), ("rmsnorm", 1e-6)):
+            for bias in (bi, None):
+                got = stream_norm(x, sc, bias, mode=mode, eps=eps)
+                ref = stream_norm_plain(x, sc, bias, mode=mode, eps=eps)
+                assert got.dtype == dtype and got.shape == shape
+                torch.testing.assert_close(
+                    got.float(), ref.float(), atol=2e-5, rtol=2e-5 if dtype != bf16 else 2**-7,
+                )
+    for (m, k, n), dtype in [
+        ((128, 256, 64), torch.float32), ((96, 160, 224), torch.float32),
+        ((128, 320, 192), bf16), ((96, 160, 224), bf16),
+    ]:
+        a, b, bias = r(m, k).to(dtype), (r(k, n) * k**-0.5).to(dtype), r(n).to(dtype)
+        for epilogue in ("none", "bias", "gelu", "silu"):
+            got, stats = fused_matmul(a, b, bias, epilogue=epilogue, with_stats=True)
+            ref, ref_stats = fused_matmul_plain(a, b, bias, epilogue=epilogue, with_stats=True)
+            assert got.dtype == dtype and stats.dtype == torch.float32
+            torch.testing.assert_close(
+                got.float(), ref.float(), atol=1e-4, rtol=1e-4 if dtype != bf16 else 2**-7,
+            )
+            torch.testing.assert_close(stats, ref_stats, rtol=1e-4, atol=1e-3)
+        plain_only, no_stats = fused_matmul(a, b, bias)  # "none" ignores the bias
+        assert no_stats is None
+        torch.testing.assert_close(plain_only.float(), fused_matmul_plain(a, b)[0].float(),
+                                   atol=1e-4, rtol=1e-4 if dtype != bf16 else 2**-7)
