@@ -6,16 +6,22 @@ Drives the port's main path, ``repro_torch.serving.config.build_engine`` ->
 from a seed) and holds each hand-written kernel against its plain PyTorch
 version.  Phases:
 
-1. the card's name and power limit; TF32 off for every float32 product;
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. the card's name and power limit; TF32 off for every float32 product
+   (the library yardsticks; the kernels' own 3xTF32 products keep float32
+   accuracy);
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and count
+   the tensor-core instructions (``HGMMA``, ``HMMA``) in uniconv's and flash
+   attention's libraries;
 3. kernels against plain: log every distinct shape the ``cuda`` backend
    sees in one FULL micro-step, one SKETCH micro-step and one VAE decode;
    at each, compare kernel and plain version on the card and time kernel,
    plain version and one PyTorch library call on the device alone, with
    the calls queued behind a spin so no host gap enters (``F.conv2d``,
    ``F.group_norm`` + ``F.silu``, ``F.scaled_dot_product_attention``, used as
-   yardsticks only); check flash attention's causal/window/softcap/GQA
-   options at one small shape;
+   yardsticks only), with uniconv's and flash attention's share of both
+   their 3xTF32 and their float32 CUDA-core bound; time uniconv's
+   once-per-weight preparation apart; check flash attention's
+   causal/window/softcap/GQA options at one small shape;
 4. registry kernels: drive ``stream_norm`` and ``fused_matmul``, which no
    served path runs, through ``repro_torch.kernels.KERNEL_REGISTRY`` at
    sd_v14's full-width shapes (counting their launches), then hold each
@@ -23,8 +29,9 @@ version.  Phases:
    PyTorch library call (``F.layer_norm`` / ``F.rms_norm``; ``torch.mm`` /
    ``torch.addmm`` with the activation as a second call);
 5. serve 4 requests (two phase-aware, two all-FULL) through the engine with
-   the ``cuda`` backend, counting kernel launches, then the same stream with
-   the ``eager`` backend, and compare the latents.
+   the ``cuda`` backend, counting kernel launches (and uniconv's split-K
+   reduce launches apart), then the same stream with the ``eager``
+   backend, and compare the latents.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It prints the
 per-kernel JSON line, the card line and, last, the ``{"ok": true, ...}``
@@ -44,10 +51,15 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 without
-#: tensor cores, bfloat16 dense on tensor cores
+#: tensor cores, TF32 and bfloat16 dense on tensor cores
 MEM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
 BF16_FLOP_S = 989e12
+#: the kernels whose float32 products run on the TF32 tensor cores in
+#: "3xTF32" (three TF32 products each): their operations bound is
+#: 3 x operations / TF32_FLOP_S; the float32 CUDA-core bound is printed beside
+TENSOR_CORE_3XTF32 = ("uniconv", "flash_attention")
 #: kernel-vs-plain tolerance, relative to max(1, max |plain|): float32 sums in
 #: another order (conv over up to 9*2560 terms, group norm over up to 262144)
 TOL = {"uniconv": 2e-5, "stream_group_norm": 2e-5, "flash_attention": 1e-4}
@@ -179,7 +191,9 @@ class ShapeLog:
 
 def _check_shape(torch, F, ops, key, gen):
     """Kernel vs plain at one logged shape ->
-    (err, tol_abs, ms, plain_ms, library_ms, bytes_ms, ops_ms)."""
+    (err, tol_abs, ms, plain_ms, library_ms, bytes_ms, ops_ms, simt_ms): ops_ms
+    on the units the kernel uses (3xTF32 for ``TENSOR_CORE_3XTF32``),
+    simt_ms on the float32 CUDA cores."""
     dev = "cuda"
     r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
     kind = key[0]
@@ -224,7 +238,9 @@ def _check_shape(torch, F, ops, key, gen):
     del got, ref
     return (
         err, tol, _ms(torch, kern), _ms(torch, plain), _ms(torch, lib),
-        nbytes / MEM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3,
+        nbytes / MEM_BYTES_S * 1e3,
+        (3 * flops / TF32_FLOP_S if kind in TENSOR_CORE_3XTF32 else flops / FP32_FLOP_S) * 1e3,
+        flops / FP32_FLOP_S * 1e3,
     )
 
 
@@ -359,7 +375,12 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
     from repro_torch.kernels.stream_norm.ops import stream_group_norm, stream_group_norm_plain
-    from repro_torch.kernels.uniconv.ops import uniconv, uniconv_apply
+    from repro_torch.kernels.uniconv.ops import (
+        prepare_weights,
+        tile_plan,
+        uniconv,
+        uniconv_apply,
+    )
     from repro_torch.models import unet as U
     from repro_torch.models import vae as V
     from repro_torch.models.backend import CUDA, EAGER, KernelBackend
@@ -392,6 +413,10 @@ def main() -> int:
     for name, log in build.BUILD_LOG.items():
         regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines() if "registers" in ln]
         print(f"[chip_smoke]   {name}.cu: {regs}")
+    # the tensor cores at work: HGMMA is a wgmma product, HMMA an mma.sync one
+    sass = {name: build.sass_counts(name) for name in TENSOR_CORE_3XTF32}
+    print(f"[chip_smoke] SASS instruction counts (cuobjdump -sass): {sass}")
+    detail["sass_counts"] = sass
     t0 = _phase("build", t0)
 
     # 3. kernels against plain at every served shape ------------------------------
@@ -435,13 +460,18 @@ def main() -> int:
     rows, failures, by_key = [], [], {}
     with torch.no_grad():
         for key, n in sorted(log.calls.items(), key=lambda kv: str(kv[0])):
-            err, tol, ms, pms, lms, bytes_ms, ops_ms = _check_shape(torch, F, ops, key, gen)
+            err, tol, ms, pms, lms, bytes_ms, ops_ms, simt_ms = _check_shape(
+                torch, F, ops, key, gen)
             row = dict(key=list(key), calls=n, max_abs_err=err, tol=tol, ms=ms, plain_ms=pms,
-                       library_ms=lms, bytes_ms=bytes_ms, ops_ms=ops_ms)
+                       library_ms=lms, bytes_ms=bytes_ms, ops_ms=ops_ms, simt_ms=simt_ms)
             rows.append(row)
             by_key[key] = row
+            bound, simt = max(bytes_ms, ops_ms), max(bytes_ms, simt_ms)
+            share = (f" share {simt / ms:.0%} of the f32 SIMT bound {simt:.4f} ms, "
+                     f"{bound / ms:.0%} of the 3xTF32 bound" if key[0] in TENSOR_CORE_3XTF32
+                     else f" share {bound / ms:.0%}")
             print(f"[chip_smoke]   {key} x{n}: err {err:.3g} (tol {tol:.3g}) kernel {ms:.4f} ms "
-                  f"plain {pms:.4f} ms library {lms:.4f} ms bound {max(bytes_ms, ops_ms):.4f} ms")
+                  f"plain {pms:.4f} ms library {lms:.4f} ms bound {bound:.4f} ms{share}")
             if not err <= tol:
                 failures.append(f"{key}: max |kernel - plain| {err} > {tol}")
         # the options the served path does not use, at one small shape
@@ -456,17 +486,32 @@ def main() -> int:
             if not err <= TOL["flash_attention"]:
                 failures.append(f"flash_attention {opts}: {err}")
     detail["shapes"] = rows
+    # uniconv's weight preparation (tf32 split, K-major, padded): paid once per
+    # weight tensor and cached, so it is not in the kernel times above
+    prep = {}
+    for key in log.calls:
+        if key[0] == "uniconv":
+            _, xs, ws, hw, k, stride = key
+            w = torch.randn(ws, generator=gen, device="cuda")
+            m = xs[0] * (-(-hw[0] // stride)) * (-(-hw[1] // stride))
+            bn = tile_plan(m, ws[2], ws[1], k).bn
+            prep[key] = _ms(torch, lambda: prepare_weights(w, bn))
+    prep_calls = sum(n * prep[key] for key, n in log.calls.items() if key in prep)
+    print(f"[chip_smoke] uniconv weight prep (once per weight tensor, not in the kernel time): "
+          f"{sum(prep.values()):.3f} ms over the {len(prep)} distinct shapes, "
+          f"{prep_calls:.3f} ms weighted by calls")
+    detail["uniconv_weight_prep_ms"] = {str(k): v for k, v in prep.items()}
 
     def summed(counts: dict[tuple, int]) -> dict[str, dict]:
         """Per kernel, over ``counts`` calls: launches, max error, and each
         time and bound summed with the number of calls at each shape."""
         out = {name: dict(launches=0, err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                          bytes_ms=0.0, ops_ms=0.0) for name in SOURCES}
+                          bytes_ms=0.0, ops_ms=0.0, simt_ms=0.0) for name in SOURCES}
         for key, n in counts.items():
             tot, row = out[key[0]], by_key[key]
             tot["launches"] += n
             tot["err"] = max(tot["err"], row["max_abs_err"])
-            for f in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
+            for f in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "simt_ms"):
                 tot[f] += n * row[f]
         return out
 
@@ -475,9 +520,11 @@ def main() -> int:
         print(f"[chip_smoke] {phase}: U-Net/decoder pass cuda {pass_ms[phase]['cuda']:.2f} ms, "
               f"eager {pass_ms[phase]['eager']:.2f} ms")
         for name, v in per.items():
+            simt = (f" (f32 SIMT bound {max(v['bytes_ms'], v['simt_ms']):.2f} ms)"
+                    if name in TENSOR_CORE_3XTF32 else "")
             print(f"[chip_smoke]   {name}: {v['launches']} launches, kernel {v['ms']:.2f} ms, "
                   f"plain {v['plain_ms']:.2f} ms, library {v['library_ms']:.2f} ms, bound "
-                  f"{max(v['bytes_ms'], v['ops_ms']):.2f} ms")
+                  f"{max(v['bytes_ms'], v['ops_ms']):.2f} ms{simt}")
         detail.setdefault("per_pass", {})[phase] = per
     # the JSON line's times: one FULL and one SKETCH micro-step and one decode
     totals = summed(log.calls)
@@ -518,6 +565,10 @@ def main() -> int:
         results[backend] = ({d.rid: d for d in done}, summary, launches)
         print(f"[chip_smoke] serve {backend}: {summary}")
         print(f"[chip_smoke]   launches: {launches}")
+        if backend == "cuda":
+            reduce_launches = uniconv.reduce_launches
+            print(f"[chip_smoke]   uniconv split-K reduce launches (apart from its "
+                  f"{launches['uniconv']}): {reduce_launches}")
         if sorted(d.rid for d in done) != [0, 1, 2, 3]:
             raise AssertionError(f"{backend}: completed rids {sorted(d.rid for d in done)}")
         for d in done:
@@ -536,6 +587,7 @@ def main() -> int:
     print(f"[chip_smoke] latents cuda vs eager: max |d| {serve_err:.3g} on max |latent| "
           f"{scale:.3g} (tol {SERVE_TOL * scale:.3g}); images max |d| {image_err:.3g}")
     detail["serve"] = dict(cuda=summary_c, eager=summary_e, launches=launches,
+                           uniconv_reduce_launches=reduce_launches,
                            latent_err=serve_err, latent_scale=scale, image_err=image_err)
     if not serve_err <= SERVE_TOL * scale:
         raise AssertionError(f"cuda latents differ from eager by {serve_err}")
@@ -547,6 +599,11 @@ def main() -> int:
         _kernel_entry(name, src, rep, reg_totals[name]["launches"], reg_totals[name])
         for name, (src, rep) in REGISTRY_SOURCES.items()
     ]
+    # the float32 CUDA-core bound of the two 3xTF32 kernels: in the per-pass
+    # lines and here, not in the kernels line, whose bound_ms is the 3xTF32 one
+    detail["fp32_simt_bound_ms"] = {
+        name: max(totals[name]["bytes_ms"], totals[name]["simt_ms"]) for name in TENSOR_CORE_3XTF32
+    }
     detail.update(card=card, kernels=kernels, seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

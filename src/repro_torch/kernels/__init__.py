@@ -44,8 +44,11 @@ __all__ = [
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's ``launches`` (and uniconv's split-K
+    ``reduce_launches``)."""
     for fn, _ in KERNEL_REGISTRY.values():
         fn.launches = 0
+    uniconv.reduce_launches = 0
 
 
 def launch_counts() -> dict[str, int]:

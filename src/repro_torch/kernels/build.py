@@ -34,8 +34,13 @@ SOURCES = ("uniconv", "group_norm", "flash_attention", "stream_norm", "fused_mat
 #: C entry points: name -> (library, argtypes)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
-    # x, w, bias (nullable), out, B, H, W, Cin, Cout, K, stride, stream
-    "uniconv_f32": ("uniconv", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # x, w_hi, w_lo, bias (nullable), out, partials (nullable), B, H, W, Cin, Cout,
+    # Cin_pad, Cout_pad, K, stride, bn, split, stream
+    "uniconv_f32": (
+        "uniconv", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    # out ints, their capacity: the tiling the plan in uniconv/ops.py assumes
+    "uniconv_tiling": ("uniconv", [ctypes.POINTER(ctypes.c_int), _I]),
     # x, scale, bias, out, partials, stats, B, L, C, G, chunk_rows, eps, silu, stream
     "group_norm_f32": ("group_norm", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
     # q, k, v, out, B, H, Hkv, Sq, Skv, Dh, causal, window, softcap, scale, stream
@@ -99,6 +104,19 @@ def build_all() -> float:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def sass_counts(name: str, opcodes=("HGMMA", "HMMA")) -> dict[str, int] | None:
+    """How many SASS instructions of each opcode the built library ``name``
+    holds (``cuobjdump -sass``), or None where the toolkit has no cuobjdump.
+    ``HGMMA`` is a warpgroup (wgmma) product, ``HMMA`` an mma.sync one."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(_lib_path(name))], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    words = [ln.split() for ln in sass.splitlines()]
+    return {op: sum(1 for w in words for tok in w if tok.split(".")[0] == op) for op in opcodes}
 
 
 def get(fn: str) -> ctypes._CFuncPtr:

@@ -9,9 +9,10 @@
 * :func:`flash_attention` is the wrapper of the hand-written Hopper kernel
   (``kernels/csrc/flash_attention.cu``), which replaces
   ``repro/kernels/flash_attention/kernel.py::flash_attention`` with the same
-  signature.  Bound by float32 operations at the served shapes; the online
-  max/exp-sum keeps the logits out of device memory.  It takes
-  :func:`flash_attention_ref` only for a tensor on the CPU.
+  signature.  Bound by operations at the served shapes, which it runs on the
+  tensor cores (``mma.sync`` TF32 in split-precision "3xTF32", float32-level
+  error); the online max/exp-sum keeps the logits out of device memory.  It
+  takes :func:`flash_attention_ref` only for a tensor on the CPU.
 """
 from __future__ import annotations
 

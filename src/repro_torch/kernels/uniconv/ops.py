@@ -6,15 +6,155 @@
   (``kernels/csrc/uniconv.cu``), which replaces
   ``repro/kernels/uniconv/kernel.py::uniconv`` plus the bias and stride of
   ``repro/kernels/uniconv/ops.py``.  It is an implicit GEMM over the K*K
-  taps with masked, shifted loads staged in shared memory; bound by float32
-  operations at the served shapes (see the source for the design).  It
-  takes the plain version only for a tensor that lies on the CPU.
+  taps on the tensor cores in split-precision "3xTF32" (float32-level
+  error; see the source for the design).  It takes the plain version only
+  for a tensor that lies on the CPU.
+
+The host side of the kernel's design lives here, in plain PyTorch that the
+CPU tests reach: :func:`tf32_split` (the kernel's ``cvt.rna.tf32`` split,
+in integer ops), :func:`prepare_weights` (the K-major ``w_hi`` / ``w_lo``
+the kernel reads, cached per weight tensor by :func:`prepared_weights`) and
+:func:`tile_plan` (the N tile and split-K from the shape alone).
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+import weakref
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
+
+#: output rows per block (two 64-row warpgroups) and input channels per stage
+BM, BK = 128, 16
+#: the N tiles the kernel is instantiated for.  These, BM, BK and
+#: :func:`blocks_per_sm` restate constants of ``csrc/uniconv.cu``;
+#: :func:`check_tiling` holds them against the built kernel at first use
+BN_CHOICES = (8, 32, 64, 160)
+#: streaming multiprocessors of an H100: the least grid the plan aims for
+TARGET_BLOCKS = 132
+#: fewest ring stages a split-K part reduces over, and the most parts
+MIN_STAGES_PER_SPLIT, MAX_SPLIT = 4, 16
+#: split-K cost of one output element per part (write and read back its
+#: float32 partial, 8 bytes at 3.35 TB/s), in units of one ring stage of a
+#: block, taken as 1.2 us: chip_smoke.py's per-shape times on an H100 put a
+#: stage at 1.5-2.5 us, so the partials' cost is weighted high, not low
+REDUCE_STAGES_PER_ELEMENT = 8 / 3.35e12 / 1.2e-6
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> nearest TF32 value (ties away from zero), as float32: the
+    ``cvt.rna.tf32.f32`` of the kernel, in integer ops on the bit pattern."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``t = hi + lo`` to about 2**-22 relative, both TF32-representable."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.float() - hi)
+
+
+class TilePlan(NamedTuple):
+    bm: int
+    bn: int
+    split: int
+    #: blocks along M and N (the grid without split-K)
+    m_tiles: int
+    n_tiles: int
+    #: ring stages of the whole reduction: K*K taps x Cin_pad / BK chunks
+    stages: int
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles * self.split
+
+
+def pick_bn(cout: int) -> int:
+    """N tile from Cout: the narrowest that holds a narrow Cout (3, 4 -> 8;
+    32 -> 32), 160 for a multiple of 160 that 128 does not divide (320 =
+    2 x 160), else 64 (640 = 10 x 64, 1280 = 20 x 64).  A 64-wide tile keeps
+    a block's registers under 128 a thread, so two blocks share an SM; a
+    160-wide one takes a whole SM but reads each activation tile once for
+    half of Cout 320; each was the faster at its served Cout on an H100."""
+    for bn in BN_CHOICES[:-1]:
+        if cout <= bn:
+            return bn
+    return 160 if cout % 160 == 0 and cout % 128 else 64
+
+
+def blocks_per_sm(bn: int) -> int:
+    """Blocks an SM holds at once: two where the N tile keeps a thread's
+    registers under 128 (BN <= 64), else one (the kernel's launch bounds)."""
+    return 2 if bn <= 64 else 1
+
+
+@functools.cache
+def check_tiling() -> None:
+    """Raise unless the built kernel reports (``uniconv_tiling``) the BM,
+    BK, N tiles and blocks per SM that :func:`tile_plan` assumes."""
+    buf = (ctypes.c_int * 32)()
+    n = build.get("uniconv_tiling")(buf, len(buf))
+    want = [BM, BK, len(BN_CHOICES)] + [v for bn in BN_CHOICES for v in (bn, blocks_per_sm(bn))]
+    if list(buf[:max(n, 0)]) != want:
+        raise RuntimeError(f"uniconv: kernel tiling {list(buf[:max(n, 0)])} != plan's {want}")
+
+
+def tile_plan(m: int, cout: int, cin: int, ksize: int) -> TilePlan:
+    """(BM, BN, split-K) of one conv from its shape alone.
+
+    Every block of a grid walks the same number of stages, so a grid takes
+    about ceil(blocks / slots) rounds of ceil(stages / split) stages, where
+    slots = 132 SMs x :func:`blocks_per_sm`.  The split that minimises
+    that, plus the partials' traffic, is chosen: it fills the card where
+    the output tiles alone leave it short (sd_v14 levels 2-3, the stride-2
+    and 1x1 convs there) and evens out a last round that would run nearly
+    empty.  Each part keeps at least ``MIN_STAGES_PER_SPLIT`` stages."""
+    bn = pick_bn(cout)
+    m_tiles, n_tiles = -(-m // BM), -(-cout // bn)
+    stages = ksize * ksize * (-(-cin // BK))
+    slots = TARGET_BLOCKS * blocks_per_sm(bn)
+    best = None
+    for split in range(1, max(1, min(MAX_SPLIT, stages // MIN_STAGES_PER_SPLIT)) + 1):
+        rounds = -(-m_tiles * n_tiles * split // slots)
+        cost = rounds * -(-stages // split)
+        if split > 1:
+            cost += split * m * cout * REDUCE_STAGES_PER_ELEMENT
+        if best is None or cost < best[0]:
+            best = (cost, split)
+    return TilePlan(BM, bn, best[1], m_tiles, n_tiles, stages)
+
+
+def prepare_weights(w: torch.Tensor, bn: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """[K*K, Cin, Cout] weights -> (w_hi, w_lo), each [K*K, Cout_pad, Cin_pad]
+    K-major and zero-padded (Cout_pad a multiple of ``bn``, Cin_pad of BK)."""
+    nf, cin, cout = w.shape
+    cin_pad, cout_pad = -(-cin // BK) * BK, -(-cout // bn) * bn
+    wt = torch.zeros((nf, cout_pad, cin_pad), device=w.device, dtype=torch.float32)
+    wt[:, :cout, :cin] = w.transpose(1, 2)
+    hi, lo = tf32_split(wt)
+    return hi.contiguous(), lo.contiguous()
+
+
+#: id(weight) -> (weakref to it, its _version, bn, w_hi, w_lo)
+_PREPARED: dict[int, tuple] = {}
+
+
+def prepared_weights(w: torch.Tensor, bn: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`prepare_weights`, once per weight tensor: cached by the
+    tensor's identity and ``_version`` (an in-place update re-prepares);
+    the entry goes when the tensor does."""
+    key = id(w)
+    hit = _PREPARED.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version and hit[2] == bn:
+        return hit[3], hit[4]
+    hi, lo = prepare_weights(w, bn)
+    if hit is None or hit[0]() is not w:
+        weakref.finalize(w, _PREPARED.pop, key, None)
+    _PREPARED[key] = (weakref.ref(w), w._version, bn, hi, lo)
+    return hi, lo
 
 
 def uniconv_apply(
@@ -83,16 +223,29 @@ def uniconv(
     build.require_cuda("uniconv", *operands)
     if b is not None and b.shape != (cout,):
         raise ValueError(f"uniconv: bias shape {tuple(b.shape)}, want ({cout},)")
+    check_tiling()
     ho, wo = -(-h // stride), -(-wdim // stride)
+    plan = tile_plan(bsz * ho * wo, cout, cin, ksize)
+    w_hi, w_lo = prepared_weights(w, plan.bn)
     out = torch.empty((bsz, ho * wo, cout), device=x.device, dtype=torch.float32)
+    partials = None
+    if plan.split > 1:
+        partials = torch.empty((plan.split, bsz * ho * wo, cout), device=x.device,
+                               dtype=torch.float32)
     fn = build.get("uniconv_f32")
     err = fn(
-        x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
-        bsz, h, wdim, cin, cout, ksize, stride, build.stream_ptr(x.device),
+        x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(), None if b is None else b.data_ptr(),
+        out.data_ptr(), None if partials is None else partials.data_ptr(),
+        bsz, h, wdim, cin, cout, w_hi.shape[2], w_hi.shape[1], ksize, stride, plan.bn,
+        plan.split, build.stream_ptr(x.device),
     )
     build.check("uniconv_f32", err)
     uniconv.launches += 1
+    if plan.split > 1:
+        uniconv.reduce_launches += 1
     return out
 
 
 uniconv.launches = 0
+#: split-K reduce launches, which follow their conv launch (not in ``launches``)
+uniconv.reduce_launches = 0

@@ -26,7 +26,7 @@ from repro_torch.kernels.stream_norm.ops import (
     stream_norm,
     stream_norm_plain,
 )
-from repro_torch.kernels.uniconv.ops import uniconv, uniconv_apply
+from repro_torch.kernels.uniconv.ops import tile_plan, uniconv, uniconv_apply
 from repro_torch.models.backend import resolve_backend
 
 #: (L, C) of every sd_toy U-Net level (16x16 latent, channel mults 1/2/4)
@@ -149,14 +149,21 @@ def test_cuda_kernels_match_plain(cuda_device):
     and the ragged cases (Cin=4, Cout=3, stride 2, KV tail 77, Dh=40; row
     norm D=33 and rows wider than the shared-memory cache; product
     (96, 160, 224)), float32 and bfloat16.  A bfloat16 output may differ by
-    one bfloat16 step (rtol 2**-7) where the float32 sums differ in order."""
+    one bfloat16 step (rtol 2**-7) where the float32 sums differ in order.
+    The shapes the tensor-core designs branch on: uniconv's split-K
+    (sd_v14 level 3, 8x8 at 1280 channels, 3x3 and 1x1), the 160-wide N
+    tile (Cout 320), Cout 3 and 4, Cin 4, Cin 6 (4-byte copies), stride 2;
+    flash attention's Dh 40/80/160, Skv 77, causal, window, softcap, GQA."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     r = lambda *s: torch.randn(s, generator=gen, device=cuda_device)  # noqa: E731
     for b, side, cin, cout, k, stride in [
         (2, 16, 32, 64, 3, 1), (2, 16, 4, 32, 3, 1), (1, 16, 32, 3, 3, 1), (2, 16, 64, 64, 3, 2),
         (2, 4, 128, 128, 1, 1),
+        (4, 8, 1280, 1280, 3, 1), (4, 8, 2560, 1280, 1, 1), (2, 16, 320, 320, 3, 1),
+        (2, 16, 320, 4, 3, 1), (1, 16, 6, 16, 3, 1), (4, 16, 640, 640, 3, 2),
     ]:
-        x, w, bias = r(b, side * side, cin), r(k * k, cin, cout) * 0.1, r(cout)
+        scale = 0.1 if k * k * cin <= 1152 else (k * k * cin) ** -0.5
+        x, w, bias = r(b, side * side, cin), r(k * k, cin, cout) * scale, r(cout)
         got = uniconv(x, w, bias, (side, side), k, stride)
         ref = uniconv_apply(w, bias, x, (side, side), k, stride)
         torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
@@ -172,6 +179,14 @@ def test_cuda_kernels_match_plain(cuda_device):
         ((2, 2, 256, 256, 16, 2), dict(causal=False)),
         ((2, 8, 130, 77, 40, 8), dict(causal=False)),
         ((2, 4, 100, 100, 32, 2), dict(causal=True, window=9, softcap=3.0)),
+        ((2, 2, 130, 130, 80, 2), dict(causal=False)),
+        ((2, 2, 100, 77, 160, 2), dict(causal=False)),
+        ((1, 2, 70, 64, 160, 2), dict(causal=False)),
+        ((2, 4, 200, 200, 40, 4), dict(causal=True)),
+        ((2, 4, 200, 200, 40, 4), dict(causal=True, window=37)),
+        ((2, 4, 200, 200, 40, 4), dict(causal=False, softcap=5.0)),
+        ((2, 4, 200, 200, 40, 2), dict(causal=True)),
+        ((1, 2, 70, 90, 30, 1), dict(causal=False)),
     ]:
         q, k, v = r(b, h, sq, dh), r(b, hkv, skv, dh), r(b, hkv, skv, dh)
         torch.testing.assert_close(
@@ -210,3 +225,31 @@ def test_cuda_kernels_match_plain(cuda_device):
         assert no_stats is None
         torch.testing.assert_close(plain_only.float(), fused_matmul_plain(a, b)[0].float(),
                                    atol=1e-4, rtol=1e-4 if dtype != bf16 else 2**-7)
+
+
+@pytest.mark.cuda
+def test_cuda_unaligned_operands_and_repeatable_split_k(cuda_device):
+    """Contiguous views that start one float past a 16-byte boundary take
+    the kernels' 4-byte copies (their 16-byte cp.async would fault) and
+    agree with the plain versions; a split-K conv (sd_v14 level 3) gives
+    the same bits on every run, its partials summed in a fixed order."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    r = lambda *s: torch.randn(s, generator=gen, device=cuda_device)  # noqa: E731
+
+    def unaligned(*shape):
+        n = int(np.prod(shape))
+        t = r(n + 1)[1:].view(*shape)
+        assert t.is_contiguous() and t.data_ptr() % 16 == 4
+        return t
+
+    x, w, bias = unaligned(2, 64, 320), r(9, 320, 320) * (9 * 320) ** -0.5, r(320)
+    torch.testing.assert_close(uniconv(x, w, bias, (8, 8), 3),
+                               uniconv_apply(w, bias, x, (8, 8), 3), atol=2e-5, rtol=2e-5)
+    q, k, v = unaligned(2, 4, 130, 40), unaligned(2, 4, 77, 40), unaligned(2, 4, 77, 40)
+    torch.testing.assert_close(flash_attention(q, k, v, causal=False),
+                               flash_attention_ref(q, k, v, causal=False), atol=1e-4, rtol=1e-4)
+    x, w, bias = r(4, 64, 1280), r(9, 1280, 1280) * (9 * 1280) ** -0.5, r(1280)
+    assert tile_plan(4 * 64, 1280, 1280, 3).split > 1
+    first = uniconv(x, w, bias, (8, 8), 3)
+    for _ in range(3):
+        assert torch.equal(uniconv(x, w, bias, (8, 8), 3), first)
