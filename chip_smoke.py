@@ -10,8 +10,9 @@ version.  Phases:
    (the library yardsticks; the kernels' own 3xTF32 products keep float32
    accuracy);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and count
-   the tensor-core instructions (``HGMMA``, ``HMMA``) in uniconv's and flash
-   attention's libraries;
+   the tensor-core instructions (``HGMMA``, ``HMMA``) in uniconv's, flash
+   attention's and fused_matmul's libraries, failing where one lacks the
+   products its design runs (``SASS_REQUIRED``);
 3. kernels against plain: log every distinct shape the ``cuda`` backend
    sees in one FULL micro-step, one SKETCH micro-step and one VAE decode;
    at each, compare kernel and plain version on the card and time kernel,
@@ -19,15 +20,19 @@ version.  Phases:
    the calls queued behind a spin so no host gap enters (``F.conv2d``,
    ``F.group_norm`` + ``F.silu``, ``F.scaled_dot_product_attention``, used as
    yardsticks only), with uniconv's and flash attention's share of both
-   their 3xTF32 and their float32 CUDA-core bound; time uniconv's
-   once-per-weight preparation apart; check flash attention's
+   their 3xTF32 and their float32 CUDA-core bound; one line per group
+   norm shape with its share of the bytes bound, the device kernels one
+   call ran (a ``torch.profiler`` trace) and its cluster plan; time
+   uniconv's once-per-weight preparation apart; check flash attention's
    causal/window/softcap/GQA options at one small shape;
 4. registry kernels: drive ``stream_norm`` and ``fused_matmul``, which no
    served path runs, through ``repro_torch.kernels.KERNEL_REGISTRY`` at
    sd_v14's full-width shapes (counting their launches), then hold each
    result against the plain version and time kernel, plain version and one
    PyTorch library call (``F.layer_norm`` / ``F.rms_norm``; ``torch.mm`` /
-   ``torch.addmm`` with the activation as a second call);
+   ``torch.addmm`` with the activation as a second call); fused_matmul's
+   float32 cases are charged at the 3xTF32 bound, the float32 CUDA-core
+   bound printed beside;
 5. serve 4 requests (two phase-aware, two all-FULL) through the engine with
    the ``cuda`` backend, counting kernel launches (and uniconv's split-K
    reduce launches apart), then the same stream with the ``eager``
@@ -59,7 +64,11 @@ BF16_FLOP_S = 989e12
 #: the kernels whose float32 products run on the TF32 tensor cores in
 #: "3xTF32" (three TF32 products each): their operations bound is
 #: 3 x operations / TF32_FLOP_S; the float32 CUDA-core bound is printed beside
-TENSOR_CORE_3XTF32 = ("uniconv", "flash_attention")
+#: (fused_matmul's bfloat16 products are charged at BF16_FLOP_S)
+TENSOR_CORE_3XTF32 = ("uniconv", "flash_attention", "fused_matmul")
+#: tensor-core instructions each library must hold (cuobjdump -sass): HGMMA
+#: is a wgmma product, HMMA an mma.sync one
+SASS_REQUIRED = {"uniconv": ("HGMMA",), "flash_attention": ("HMMA",), "fused_matmul": ("HGMMA",)}
 #: kernel-vs-plain tolerance, relative to max(1, max |plain|): float32 sums in
 #: another order (conv over up to 9*2560 terms, group norm over up to 262144)
 TOL = {"uniconv": 2e-5, "stream_group_norm": 2e-5, "flash_attention": 1e-4}
@@ -272,22 +281,28 @@ def _registry_inputs(torch, gen, name, case):
 
 
 def _registry_cost(name, case):
-    """(bytes_ms, ops_ms) of one phase-4 case: each input read once, each
-    output written once, against the peak rate of the operands' type."""
+    """(bytes_ms, ops_ms, simt_ms) of one phase-4 case: each input read
+    once, each output written once, against the peak rate of the units the
+    kernel uses (bfloat16 tensor cores; 3xTF32 for float32 products), and
+    the float32 CUDA-core time of the same operations."""
     if name == "stream_norm":
         _, m, d, _, _, dt = case
         size = 2 if dt == "bfloat16" else 4
-        return (2 * m * d * size + 2 * d * 4) / MEM_BYTES_S * 1e3, 8 * m * d / FP32_FLOP_S * 1e3
+        ops_ms = 8 * m * d / FP32_FLOP_S * 1e3
+        return (2 * m * d * size + 2 * d * 4) / MEM_BYTES_S * 1e3, ops_ms, ops_ms
     _, m, k, n, epilogue, with_stats, dt = case
-    size, rate = (2, BF16_FLOP_S) if dt == "bfloat16" else (4, FP32_FLOP_S)
+    flops = 2 * m * n * k
+    size, ops_ms = (2, flops / BF16_FLOP_S) if dt == "bfloat16" else (4, 3 * flops / TF32_FLOP_S)
     nbytes = (m * k + k * n + m * n) * size + (n * 4 if epilogue != "none" else 0)
     nbytes += 8 * m if with_stats else 0
-    return nbytes / MEM_BYTES_S * 1e3, 2 * m * n * k / rate * 1e3
+    return nbytes / MEM_BYTES_S * 1e3, ops_ms * 1e3, flops / FP32_FLOP_S * 1e3
 
 
 def _registry_phase(torch, K, gen):
     """Drive the registry kernels once (counted), then check and time them.
     Returns (per-kernel totals, rows, failures)."""
+    from repro_torch.kernels.fused_matmul.ops import matmul_plan
+
     cases = [("stream_norm", c) for c in NORM_CASES] + [("fused_matmul", c) for c in MATMUL_CASES]
     inputs = [_registry_inputs(torch, gen, name, case) for name, case in cases]
     K.reset_launch_counts()
@@ -299,7 +314,7 @@ def _registry_phase(torch, K, gen):
     failures = [f"{name} was never launched through KERNEL_REGISTRY"
                 for name in REGISTRY_SOURCES if launches[name] <= 0]
     totals = {name: dict(launches=launches[name], err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                         bytes_ms=0.0, ops_ms=0.0) for name in REGISTRY_SOURCES}
+                         bytes_ms=0.0, ops_ms=0.0, simt_ms=0.0) for name in REGISTRY_SOURCES}
     rows = []
     with torch.no_grad():
         for (name, case), (args, kw, lib), got in zip(cases, inputs, outs):
@@ -323,24 +338,77 @@ def _registry_phase(torch, K, gen):
             ms = _ms(torch, lambda: kern(*args, **kw))
             pms = _ms(torch, lambda: plain(*args, **kw))
             lms = _ms(torch, lib)
-            bytes_ms, ops_ms = _registry_cost(name, case)
+            bytes_ms, ops_ms, simt_ms = _registry_cost(name, case)
             row = dict(kernel=name, case=list(case), max_abs_err=err, tol=tol,
                        stats_err=stats_err, ms=ms, plain_ms=pms, library_ms=lms,
-                       bytes_ms=bytes_ms, ops_ms=ops_ms)
+                       bytes_ms=bytes_ms, ops_ms=ops_ms, simt_ms=simt_ms)
+            if name == "fused_matmul":
+                row["plan"] = matmul_plan(case[1], case[3], getattr(torch, case[6]))._asdict()
             rows.append(row)
             tot = totals[name]
             tot["err"] = max(tot["err"], err)
-            for f in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
+            for f in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "simt_ms"):
                 tot[f] += row[f]
+            bound, simt = max(bytes_ms, ops_ms), max(bytes_ms, simt_ms)
             print(f"[chip_smoke]   {name} {case}: err {err:.3g} (tol {tol:.3g})"
                   + ("" if stats_err is None else f" stats err {stats_err:.3g}")
                   + f" kernel {ms:.4f} ms plain {pms:.4f} ms library {lms:.4f} ms"
-                  f" bound {max(bytes_ms, ops_ms):.4f} ms")
+                  f" bound {bound:.4f} ms ({bound / ms:.0%})"
+                  + (f" f32 SIMT bound {simt:.4f} ms" if name == "fused_matmul" else "")
+                  + (f" {row['plan']['route']} tile {row['plan']['bm']}x{row['plan']['bn']}"
+                     if name == "fused_matmul" else ""))
     for name, v in totals.items():
         print(f"[chip_smoke]   {name}: {v['launches']} launches, kernel {v['ms']:.3f} ms, "
               f"plain {v['plain_ms']:.3f} ms, library {v['library_ms']:.3f} ms, bound "
-              f"{max(v['bytes_ms'], v['ops_ms']):.3f} ms")
+              f"{max(v['bytes_ms'], v['ops_ms']):.3f} ms"
+              + (f" (f32 SIMT bound {max(v['bytes_ms'], v['simt_ms']):.3f} ms)"
+                 if name == "fused_matmul" else ""))
     return totals, rows, failures
+
+
+def _device_kernels(torch, fn) -> int | None:
+    """Kernels the card ran in one call of ``fn``, from a torch.profiler
+    trace (CUPTI), or None where the trace shows no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def _group_norm_lines(torch, ops, group_norm_plan, by_key, calls, gen) -> list[dict]:
+    """One line per served group norm shape: calls, kernel / plain / library
+    ms, share of the bytes bound, kernels the card ran per call (profiler),
+    and the plan (cluster x slices x batch, rows a block, on chip)."""
+    out = []
+    for key, n in sorted(calls.items(), key=lambda kv: str(kv[0])):
+        if key[0] != "stream_group_norm":
+            continue
+        _, xs, groups, silu = key
+        row = by_key[key]
+        plan = group_norm_plan(xs[0], xs[1], xs[2], groups)
+        x = torch.randn(xs, generator=gen, device="cuda")
+        sc, bi = torch.ones(xs[2], device="cuda"), torch.zeros(xs[2], device="cuda")
+        per_call = _device_kernels(
+            torch, lambda: ops["stream_group_norm"](x, sc, bi, groups=groups, silu=silu))
+        line = dict(shape=list(xs), groups=groups, silu=silu, calls=n, ms=row["ms"],
+                    plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+                    bytes_ms=row["bytes_ms"], share=row["bytes_ms"] / row["ms"],
+                    kernels_per_call=per_call, plan=plan._asdict(), blocks=plan.blocks)
+        out.append(line)
+        print(f"[chip_smoke]   group norm {list(xs)} G{groups} silu={silu}: x{n}, kernel "
+              f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms library "
+              f"{row['library_ms']:.4f} ms, {line['share']:.0%} of the bytes bound "
+              f"{row['bytes_ms']:.4f} ms; device kernels a call "
+              f"{'not measured' if per_call is None else per_call}; plan: cluster "
+              f"{plan.cluster} x {plan.slices} slices of {plan.slice_width} channels x "
+              f"batch {plan.batch} = {plan.blocks} blocks, {plan.rows_per_block} rows a block, "
+              f"{'on chip' if plan.on_chip else 're-read'}, {plan.smem_bytes} B shared")
+    return out
 
 
 def _kernel_entry(name, src, rep, launches, tot) -> dict:
@@ -374,7 +442,11 @@ def main() -> int:
     from repro_torch.core import sampler as SM
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_ref
-    from repro_torch.kernels.stream_norm.ops import stream_group_norm, stream_group_norm_plain
+    from repro_torch.kernels.stream_norm.ops import (
+        group_norm_plan,
+        stream_group_norm,
+        stream_group_norm_plain,
+    )
     from repro_torch.kernels.uniconv.ops import (
         prepare_weights,
         tile_plan,
@@ -414,9 +486,13 @@ def main() -> int:
         regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines() if "registers" in ln]
         print(f"[chip_smoke]   {name}.cu: {regs}")
     # the tensor cores at work: HGMMA is a wgmma product, HMMA an mma.sync one
-    sass = {name: build.sass_counts(name) for name in TENSOR_CORE_3XTF32}
+    sass = {name: build.sass_counts(name) for name in SASS_REQUIRED}
     print(f"[chip_smoke] SASS instruction counts (cuobjdump -sass): {sass}")
     detail["sass_counts"] = sass
+    missing = [f"{name}: no {op}" for name, ops in SASS_REQUIRED.items() if sass[name] is not None
+               for op in ops if sass[name][op] <= 0]
+    if missing:
+        raise AssertionError(f"a tensor-core product was not compiled: {missing}")
     t0 = _phase("build", t0)
 
     # 3. kernels against plain at every served shape ------------------------------
@@ -486,6 +562,9 @@ def main() -> int:
             if not err <= TOL["flash_attention"]:
                 failures.append(f"flash_attention {opts}: {err}")
     detail["shapes"] = rows
+    with torch.no_grad():
+        detail["group_norm_shapes"] = _group_norm_lines(
+            torch, ops, group_norm_plan, by_key, log.calls, gen)
     # uniconv's weight preparation (tf32 split, K-major, padded): paid once per
     # weight tensor and cached, so it is not in the kernel times above
     prep = {}
@@ -601,8 +680,10 @@ def main() -> int:
     ]
     # the float32 CUDA-core bound of the two 3xTF32 kernels: in the per-pass
     # lines and here, not in the kernels line, whose bound_ms is the 3xTF32 one
+    all_totals = {**totals, **reg_totals}
     detail["fp32_simt_bound_ms"] = {
-        name: max(totals[name]["bytes_ms"], totals[name]["simt_ms"]) for name in TENSOR_CORE_3XTF32
+        name: max(all_totals[name]["bytes_ms"], all_totals[name]["simt_ms"])
+        for name in TENSOR_CORE_3XTF32
     }
     detail.update(card=card, kernels=kernels, seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"

@@ -31,7 +31,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 #: the sources, by library name
 SOURCES = ("uniconv", "group_norm", "flash_attention", "stream_norm", "fused_matmul")
 
-#: C entry points: name -> (library, argtypes)
+#: C entry points: name -> (library, argtypes[, restype]); restype defaults to int
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     # x, w_hi, w_lo, bias (nullable), out, partials (nullable), B, H, W, Cin, Cout,
@@ -41,8 +41,13 @@ ENTRY_POINTS = {
     ),
     # out ints, their capacity: the tiling the plan in uniconv/ops.py assumes
     "uniconv_tiling": ("uniconv", [ctypes.POINTER(ctypes.c_int), _I]),
-    # x, scale, bias, out, partials, stats, B, L, C, G, chunk_rows, eps, silu, stream
-    "group_norm_f32": ("group_norm", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
+    # x, scale, bias, out, B, L, C, G, groups a slice, cluster, rows a block, on chip, eps,
+    # silu, stream
+    "group_norm_f32": (
+        "group_norm", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
+    # rows a block, slice width, groups a slice, on chip -> bytes of shared memory
+    "group_norm_smem": ("group_norm", [_I, _I, _I, _I], ctypes.c_long),
     # q, k, v, out, B, H, Hkv, Sq, Skv, Dh, causal, window, softcap, scale, stream
     "flash_attention_f32": (
         "flash_attention",
@@ -51,9 +56,14 @@ ENTRY_POINTS = {
     # x, scale, bias (nullable), out, M, D, eps, rms, stream
     "stream_norm_f32": ("stream_norm", [_P, _P, _P, _P, _I, _I, _F, _I, _P]),
     "stream_norm_bf16": ("stream_norm", [_P, _P, _P, _P, _I, _I, _F, _I, _P]),
-    # a, b, bias (nullable), out, partials, stats (both nullable), M, N, K, epilogue, stream
-    "fused_matmul_f32": ("fused_matmul", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "fused_matmul_bf16": ("fused_matmul", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # a, b, bias (nullable), out, partials, stats (both nullable), scratch (nullable), M, N,
+    # K, epilogue, route, N tile, stream
+    "fused_matmul_f32": (
+        "fused_matmul", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "fused_matmul_bf16": (
+        "fused_matmul", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
 }
 
 #: suffix of the entry point that takes each operand type
@@ -122,12 +132,12 @@ def sass_counts(name: str, opcodes=("HGMMA", "HMMA")) -> dict[str, int] | None:
 def get(fn: str) -> ctypes._CFuncPtr:
     """The C entry point ``fn``, building and loading its library on first use."""
     if fn not in _FUNCS:
-        lib_name, argtypes = ENTRY_POINTS[fn]
+        lib_name, argtypes, *restype = ENTRY_POINTS[fn]
         build_all()
         lib = ctypes.CDLL(str(_lib_path(lib_name)))
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = restype[0] if restype else ctypes.c_int
         _FUNCS[fn] = f
     return _FUNCS[fn]
 

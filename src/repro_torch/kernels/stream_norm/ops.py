@@ -17,18 +17,38 @@
 * :func:`stream_group_norm` is the wrapper of the hand-written Hopper kernel
   (``kernels/csrc/group_norm.cu``), which replaces
   ``repro/kernels/stream_norm/kernel.py::stream_group_norm``.  It is bound by
-  memory; a split-L statistics pass writes per-chunk partial sums so every
-  SM has work, then an apply pass normalises, scales and applies the SiLU in
-  one trip.  It takes the plain version only for a tensor on the CPU.
+  memory and runs in one launch: each (batch element, slice of whole
+  groups) is one thread-block cluster whose blocks split the rows, cache
+  them in shared memory, and add their group partials over distributed
+  shared memory in rank order (:func:`group_norm_plan`).  It takes the
+  plain version only for a tensor on the CPU.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
-#: rows of one batch element per block of the statistics pass
-CHUNK_ROWS = 64
+#: group_norm.cu: threads a block, largest cluster, shared memory a block may take
+GN_THREADS = 128
+GN_MAX_CLUSTER = 16
+SMEM_LIMIT = 232448
+#: the residency model of the plan (H100): SMs, shared memory an SM holds,
+#: the CUDA runtime's reserve per block, and blocks an SM holds at most (65536
+#: registers at 56 a thread of 128 threads: ptxas, chip_smoke.py's build line)
+SMS, SM_SMEM, BLOCK_RESERVE, GN_MAX_BLOCKS_PER_SM = 132, 233472, 1024, 9
+#: the least grid the plan aims for, and the grid it prefers: about four
+#: blocks an SM, each of at most 40 KB (on an H100, 16-block clusters of
+#: such blocks beat smaller clusters and wider blocks at the served shapes
+#: that fit in one round)
+TARGET_BLOCKS, PREFERRED_BLOCKS, SMALL_BLOCK_BYTES = SMS, 512, 40 * 1024
+#: a row of a slice should span whole 32-byte sectors, and 128 bytes where C allows
+SECTOR_BYTES, SEGMENT_BYTES = 32, 128
+#: the cluster sizes the plan picks from
+GN_CLUSTERS = (1, 2, 4, 8, 16)
 #: the row norms of :func:`stream_norm`
 MODES = ("layernorm", "rmsnorm")
 
@@ -107,6 +127,104 @@ def stream_group_norm_plain(
     return y * torch.sigmoid(y) if silu else y
 
 
+class GroupNormPlan(NamedTuple):
+    """One launch of ``group_norm.cu``: a cluster of ``cluster`` blocks per
+    (batch element, slice of ``groups_per_slice`` whole groups), each block
+    taking ``rows_per_block`` rows of its slice, cached in shared memory
+    when ``on_chip`` (x read from HBM once), else read twice."""
+    batch: int
+    rows: int
+    channels: int
+    groups: int
+    groups_per_slice: int
+    cluster: int
+    rows_per_block: int
+    on_chip: bool
+    smem_bytes: int
+
+    @property
+    def slice_width(self) -> int:
+        return self.groups_per_slice * (self.channels // self.groups)
+
+    @property
+    def slices(self) -> int:
+        return self.groups // self.groups_per_slice
+
+    @property
+    def blocks(self) -> int:
+        return self.batch * self.slices * self.cluster
+
+
+
+def group_norm_smem(rows_per_block: int, width: int, groups_per_slice: int,
+                    on_chip: bool) -> int:
+    """Bytes of shared memory of one block (``group_norm.cu::smem_floats``):
+    the cached rows, per-column sums, per-column scale / bias, and the group
+    partials and statistics."""
+    cached = rows_per_block * width if on_chip else 0
+    return 4 * (cached + 2 * max(4 * GN_THREADS, width) + 2 * width + 4 * groups_per_slice)
+
+
+def waves(blocks: int, cluster: int, smem_bytes: int) -> int:
+    """Rounds of resident clusters the grid takes, in the plan's residency
+    model."""
+    per_sm = min(GN_MAX_BLOCKS_PER_SM, SM_SMEM // (smem_bytes + BLOCK_RESERVE))
+    clusters = max(1, SMS * per_sm // cluster)
+    return -(-blocks // (clusters * cluster))
+
+
+@functools.lru_cache(maxsize=None)
+def group_norm_plan(b: int, l: int, c: int, groups: int) -> GroupNormPlan:
+    """The launch for x [b, l, c] with ``groups`` groups.
+
+    Among slices of whole groups and clusters of 1-16 blocks whose rows fit
+    in shared memory, prefer in order: slice rows that span whole 32-byte
+    sectors; slices that allow 16-byte access; the fewest rounds of
+    resident clusters (:func:`waves`: a last round that is nearly empty
+    costs as much as a full one); at least :data:`PREFERRED_BLOCKS` blocks;
+    slice rows of 128 bytes or more; the smallest block above
+    :data:`SMALL_BLOCK_BYTES` (any at or below it alike); the largest
+    cluster; the widest slice.
+    Where no cluster can hold the rows, the widest sector-spanning slice at
+    the largest cluster reads x twice."""
+    if groups <= 0 or c % groups:
+        raise ValueError(f"group_norm_plan: {c} channels in {groups} groups")
+    cg = c // groups
+    sector, segment = min(SECTOR_BYTES, 4 * c), min(SEGMENT_BYTES, 4 * c)
+    best = None
+    for gps in (d for d in range(1, groups + 1) if groups % d == 0):
+        width = gps * cg
+        for cs in GN_CLUSTERS:
+            rows = -(-l // cs)
+            if cs > 1 and rows * (cs - 1) >= l:
+                continue  # a block with no rows
+            smem = group_norm_smem(rows, width, gps, True)
+            if smem > SMEM_LIMIT:
+                continue
+            plan = GroupNormPlan(b, l, c, groups, gps, cs, rows, True, smem)
+            key = (4 * width < sector, width % 4 != 0 and c % 4 == 0,
+                   waves(plan.blocks, cs, smem), plan.blocks < PREFERRED_BLOCKS,
+                   4 * width < segment, max(smem, SMALL_BLOCK_BYTES), -cs, -width)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    if best is not None:
+        return best[1]
+    gps = next(d for d in range(1, groups + 1) if groups % d == 0 and 4 * d * cg >= sector)
+    rows = -(-l // GN_MAX_CLUSTER)
+    return GroupNormPlan(b, l, c, groups, gps, GN_MAX_CLUSTER, rows, False,
+                         group_norm_smem(rows, gps * cg, gps, False))
+
+
+@functools.lru_cache(maxsize=None)
+def _check_smem(plan: GroupNormPlan) -> None:
+    """The kernel's own count of its shared memory must be the plan's."""
+    got = build.get("group_norm_smem")(
+        plan.rows_per_block, plan.slice_width, plan.groups_per_slice, int(plan.on_chip))
+    if got != plan.smem_bytes:
+        raise RuntimeError(f"group_norm: kernel needs {got} B of shared memory, plan says "
+                           f"{plan.smem_bytes}")
+
+
 def stream_group_norm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, groups: int,
     eps: float = 1e-5, silu: bool = False,
@@ -120,14 +238,12 @@ def stream_group_norm(
             f"stream_group_norm: x={tuple(x.shape)} scale={tuple(scale.shape)} groups={groups}"
         )
     build.require_cuda("stream_group_norm", x, scale, bias)
-    n_chunks = -(-l // CHUNK_ROWS)
+    plan = group_norm_plan(bsz, l, c, groups)
+    _check_smem(plan)
     out = torch.empty_like(x)
-    partials = torch.empty((bsz * groups * n_chunks * 2,), device=x.device, dtype=torch.float32)
-    stats = torch.empty((bsz * groups * 2,), device=x.device, dtype=torch.float32)
-    fn = build.get("group_norm_f32")
-    err = fn(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        partials.data_ptr(), stats.data_ptr(), bsz, l, c, groups, CHUNK_ROWS,
+    err = build.get("group_norm_f32")(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz, l, c, groups,
+        plan.groups_per_slice, plan.cluster, plan.rows_per_block, int(plan.on_chip),
         float(eps), int(silu), build.stream_ptr(x.device),
     )
     build.check("group_norm_f32", err)

@@ -253,3 +253,79 @@ def test_cuda_unaligned_operands_and_repeatable_split_k(cuda_device):
     first = uniconv(x, w, bias, (8, 8), 3)
     for _ in range(3):
         assert torch.equal(uniconv(x, w, bias, (8, 8), 3), first)
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_and_fused_matmul_redesign(cuda_device):
+    """The one-launch cluster group norm and the tensor-core fused_matmul
+    against their plain versions, each result the same bits over 4 runs.
+
+    Group norm: level 3 [4, 64, 2560], level 0 [4, 4096, 960], the VAE's
+    [1, 65536, 32] with 8 groups (a 16-block cluster), an odd C/G
+    ([2, 100, 36], G 4) and a view one float off a 16-byte boundary
+    (4-byte copies), with and without SiLU; tolerance 2e-5.
+    fused_matmul: every epilogue with and without stats, float32 (3xTF32
+    wgmma, both N tiles) and bfloat16 (wgmma) on grids of at least 32
+    tiles, and the SIMT tile of small products; ragged M, N and K, K and N
+    off the 16-byte copies, and
+    unaligned views.  Tolerances as chip_smoke.py: 1e-4 (float32), one
+    bfloat16 step (rtol 2**-7), stats rtol 1e-4 / atol 1e-3."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    r = lambda *s: torch.randn(s, generator=gen, device=cuda_device)  # noqa: E731
+
+    def unaligned(t):
+        """t copied into a view that starts one element past a 16-byte boundary"""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    def same_bits(fn):
+        first = fn()
+        for _ in range(3):
+            again = fn()
+            for x, y in zip(first, again):
+                assert y is None if x is None else torch.equal(x, y)
+        return first
+
+    for shape, g, off in [
+        ((4, 64, 2560), 32, False), ((4, 4096, 960), 32, False), ((1, 65536, 32), 8, False),
+        ((2, 100, 36), 4, False), ((2, 64, 320), 32, True),
+    ]:
+        x = r(*shape) + 0.5
+        x = unaligned(x) if off else x
+        sc, bi = r(shape[2]), r(shape[2])
+        for silu in (False, True):
+            (got,) = same_bits(lambda: (stream_group_norm(x, sc, bi, groups=g, silu=silu),))
+            torch.testing.assert_close(
+                got, stream_group_norm_plain(x, sc, bi, groups=g, silu=silu),
+                atol=2e-5, rtol=2e-5,
+            )
+    bf16 = torch.bfloat16
+    for (m, k, n), dtype, off in [
+        ((4100, 1280, 320), torch.float32, False), ((2100, 320, 2600), torch.float32, False),
+        ((1030, 101, 1302), torch.float32, False), ((2100, 96, 1300), torch.float32, True),
+        ((96, 160, 224), torch.float32, False), ((77, 101, 130), torch.float32, False),
+        ((4, 320, 1280), torch.float32, False),
+        ((4096, 320, 1280), bf16, False), ((2000, 160, 1000), bf16, False),
+        ((1030, 100, 1304), bf16, False), ((2100, 96, 1300), bf16, True),
+        ((96, 100, 224), bf16, False), ((4, 64, 96), bf16, False),
+    ]:
+        a, b = r(m, k).to(dtype), (r(k, n) * k**-0.5).to(dtype)
+        if off:
+            a, b = unaligned(a), unaligned(b)
+        bias = r(n)
+        rtol = 1e-4 if dtype == torch.float32 else 2**-7
+        for epilogue in ("none", "bias", "gelu", "silu"):
+            for with_stats in (False, True):
+                got, stats = same_bits(lambda: fused_matmul(
+                    a, b, bias, epilogue=epilogue, with_stats=with_stats))
+                ref, ref_stats = fused_matmul_plain(a, b, bias, epilogue=epilogue,
+                                                    with_stats=with_stats)
+                assert got.dtype == dtype
+                torch.testing.assert_close(got.float(), ref.float(), atol=1e-4, rtol=rtol)
+                if with_stats:
+                    torch.testing.assert_close(stats, ref_stats, rtol=1e-4, atol=1e-3)
+                else:
+                    assert stats is None
