@@ -36,7 +36,18 @@ version.  Phases:
 5. serve 4 requests (two phase-aware, two all-FULL) through the engine with
    the ``cuda`` backend, counting kernel launches (and uniconv's split-K
    reduce launches apart), then the same stream with the ``eager``
-   backend, and compare the latents.
+   backend, and compare the latents;
+6. serve cached and conditioned: a 12-request stream (a donor, two cold
+   churners and its twin; a K=3 variation group; img2img at strengths 0.75
+   and 0.4; inpaint with a half mask; one ``draft`` and one ``exact``
+   request) on a ``cross`` engine with a 2-slot ring and the spill ring on,
+   ``cuda`` (launches counted) then ``eager``: latents and images held
+   against each other, host counters equal, FULL->SKETCH, SKETCH->REFINE,
+   spill demotions and promotions all above 0; the same stream with the
+   cache off (FULL passes without the cache); the txt2img part at
+   threshold 0 against the cache off, bitwise equal on ``cuda``;
+   ``StaticServer`` against the continuous engine; micro-step times by
+   branch class and the cache's own costs (probe, insert, demote, promote).
 
 Run from the repository root: ``python3 chip_smoke.py``.  It prints the
 per-kernel JSON line, the card line and, last, the ``{"ok": true, ...}``
@@ -47,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -76,7 +88,24 @@ TOL = {"uniconv": 2e-5, "stream_group_norm": 2e-5, "flash_attention": 1e-4}
 #: guided PNDM steps amplify the per-op float32 differences (measured 1e-5
 #: relative on an H100)
 SERVE_TOL = 1e-4
+#: phase 6 images, cuda vs eager, relative to max(1, max |eager image|): the
+#: random-weight decoder passes the latents' float32 differences through
+#: about thirty convolutions and group norms
+IMAGE_TOL = 1e-3
 UNET, N_LANES, MAX_STEPS = "sd_v14", 2, 8
+#: phase 6's engine: a 3-slot ring (an sd_v14 slot is f_sk [2, 4096, 640] +
+#: f_rf [2, 4096, 320] float32, 30 MiB) with one bucket a step (stride 125
+#: at 8 steps), so the ring evicts, over a spill ring of P6_SPILL_SLOTS
+#: slots' bytes, so the spill evicts too and still promotes the twin's donor
+P6_CACHE = dict(cache_mode="cross", cache_slots=3, cache_t_bucket=125)
+P6_SPILL_SLOTS = 4
+#: phase 6's host counters, equal across the two backends
+P6_COUNTERS = (
+    "full_steps", "sketch_steps", "refine_steps", "demoted_full_steps", "demoted_sketch_steps",
+    "cache_hit_rate", "hbm_hits", "spill_promotions", "cache_probes", "cache_probe_hits",
+    "cache_inserts", "cache_evictions", "cache_spill_demotions", "cache_spill_promotions",
+    "quality_mix",
+)
 SOURCES = {
     "uniconv": (
         "src/repro_torch/kernels/csrc/uniconv.cu", "src/repro/kernels/uniconv/kernel.py:78",
@@ -421,6 +450,230 @@ def _kernel_entry(name, src, rep, launches, tot) -> dict:
     )
 
 
+def phase6_stream(np, ucfg, n_up, policy, GenRequest, default_pas_plan, steps=MAX_STEPS):
+    """Phase 6's request stream -> [(name, request)], rids in list order,
+    made anew (``submit`` annotates requests) from a fixed seed.
+
+    The donor's twin (same prompt and noise) comes last, after the exact and
+    draft requests on the same prompt, so the donor's captures have left the
+    ring for the spill by the time the twin is admitted; the draft's planned
+    SKETCH step finds the exact request's capture on the ring."""
+    L, c = ucfg.latent_size**2, ucfg.in_channels
+    rng = np.random.default_rng(15)
+    prompt = lambda: rng.normal(size=(ucfg.ctx_len, ucfg.ctx_dim)).astype(np.float32)  # noqa: E731
+    latent = lambda: rng.normal(size=(L, c)).astype(np.float32)  # noqa: E731
+    twin, var, twin_noise = prompt(), prompt(), latent()
+    pas = default_pas_plan(steps, n_up)
+    out = []
+
+    def add(name, **kw):
+        kw.setdefault("timesteps", steps)
+        kw.setdefault("plan", pas)
+        if kw.get("noise") is None:
+            kw["noise"] = latent()
+        out.append((name, GenRequest(rid=len(out), **kw)))
+
+    add("donor", ctx=twin, noise=twin_noise)
+    add("churn_0", ctx=prompt())
+    add("churn_1", ctx=prompt())
+    for v in range(3):
+        add(f"var_{v}", ctx=var)
+    for name, strength in (("img2img_075", 0.75), ("img2img_040", 0.4)):
+        n = max(1, round(strength * steps))
+        add(name, ctx=prompt(), timesteps=n, base_timesteps=steps, init_latent=latent(),
+            plan=default_pas_plan(n, n_up) if n >= 4 else None)
+    mask = np.ones((L, 1), np.float32)
+    mask[: L // 2] = 0.0
+    add("inpaint_half", ctx=prompt(), init_latent=latent(), mask=mask)
+    for q in ("exact", "draft"):
+        pol = policy.resolve(steps, quality=q)
+        add(q, ctx=twin, plan=pol.plan, policy=pol)
+    add("twin", ctx=twin, noise=twin_noise)
+    return out
+
+
+def _serve_cached_phase(torch, np, K, CFG, config, models, t0):
+    """Phase 6 -> its detail.  Raises on the first failed check."""
+    from repro_torch.core import sampler as SM
+    from repro_torch.models import unet as U
+    from repro_torch.serving.cache import _upload_slot
+    from repro_torch.serving.engine import GenRequest, StaticServer
+    from repro_torch.serving.policy import default_pas_plan
+
+    ucfg, dcfg, params, vae_params = models
+    n_up = U.n_up_steps(ucfg)
+    slot_bytes = 8 * sum(
+        math.prod(SM.feat_shape(ucfg, e, 1)) for e in (n_up - config.l_sketch, n_up - config.l_refine))
+    cached = dataclasses.replace(
+        config, cache_spill_mb=P6_SPILL_SLOTS * slot_bytes / 2**20 * 1.001, **P6_CACHE)
+    policy = CFG.build_policy(cached, ucfg, dcfg)
+    stream = lambda: phase6_stream(np, ucfg, n_up, policy, GenRequest, default_pas_plan)  # noqa: E731
+    names = [name for name, _ in stream()]
+    detail: dict = {}
+
+    def serve(cfg, reqs, count=False):
+        bundle = CFG.build_engine(cfg, models=models)
+        if count:
+            K.reset_launch_counts()
+        with torch.no_grad():
+            done, summary = bundle.engine.run(reqs)
+        torch.cuda.synchronize()
+        launches = K.launch_counts() if count else None
+        if sorted(d.rid for d in done) != sorted(r.rid for r in reqs):
+            raise AssertionError(f"phase 6: completed rids {sorted(d.rid for d in done)}")
+        for d in done:
+            if not np.isfinite(d.latent).all() or (
+                    d.image is not None and not np.isfinite(d.image).all()):
+                raise AssertionError(f"phase 6: rid {d.rid} ({names[d.rid]}) is not finite")
+        return bundle.engine, {d.rid: d for d in done}, summary, launches
+
+    def brief(summary):
+        keys = P6_COUNTERS + ("micro_steps", "cache_spill_entries", "step_time_by_backend")
+        return {k: summary[k] for k in keys if k in summary}
+
+    runs = {}
+    for backend in ("cuda", "eager"):
+        engine, done, summary, launches = serve(
+            dataclasses.replace(cached, backend=backend), [r for _, r in stream()],
+            count=backend == "cuda")
+        runs[backend] = (engine, done, summary)
+        print(f"[chip_smoke] serve cached {backend}: {brief(summary)}")
+        if backend == "cuda":
+            cuda_launches = launches
+            print(f"[chip_smoke]   phase 6 launches (cuda run): {launches}")
+        t0 = _phase(f"serve cached {backend}", t0)
+    (eng_c, done_c, sum_c), (_, done_e, sum_e) = runs["cuda"], runs["eager"]
+    if any(cuda_launches[name] <= 0 for name in SOURCES):
+        raise AssertionError(f"phase 6: a kernel of the path never launched: {cuda_launches}")
+    diff = {k: (sum_c[k], sum_e[k]) for k in P6_COUNTERS if sum_c[k] != sum_e[k]}
+    if diff:
+        raise AssertionError(f"phase 6: host counters differ between cuda and eager: {diff}")
+    for key in ("demoted_full_steps", "demoted_sketch_steps", "cache_spill_demotions",
+                "spill_promotions"):
+        if not sum_c[key] > 0:
+            raise AssertionError(f"phase 6: {key} is {sum_c[key]}, the stream must exercise it")
+    scale = max(1.0, max(float(np.abs(d.latent).max()) for d in done_e.values()))
+    lat_err = max(float(np.abs(done_c[r].latent - done_e[r].latent).max()) for r in done_e)
+    img_scale = max(1.0, max(float(np.abs(d.image).max()) for d in done_e.values()))
+    img_err = max(float(np.abs(done_c[r].image - done_e[r].image).max()) for r in done_e)
+    print(f"[chip_smoke]   latents cuda vs eager: max |d| {lat_err:.3g} on max |latent| "
+          f"{scale:.3g} (tol {SERVE_TOL * scale:.3g}); images max |d| {img_err:.3g} on max "
+          f"|image| {img_scale:.3g} (tol {IMAGE_TOL * img_scale:.3g})")
+    if not lat_err <= SERVE_TOL * scale:
+        raise AssertionError(f"phase 6: cuda latents differ from eager by {lat_err}")
+    if not img_err <= IMAGE_TOL * img_scale:
+        raise AssertionError(f"phase 6: cuda images differ from eager by {img_err}")
+    detail.update(cuda=sum_c, eager=sum_e, launches=cuda_launches, latent_err=lat_err,
+                  latent_scale=scale, image_err=img_err, image_scale=img_scale)
+
+    # the same stream without the cache: the FULL passes the cache saved
+    _, _, sum_off, _ = serve(dataclasses.replace(config, backend="cuda"),
+                             [r for _, r in stream()])
+    planned_full = sum_off["full_steps"]
+    print(f"[chip_smoke]   FULL U-Net passes: {sum_c['full_steps']} with the cache, "
+          f"{planned_full} without it ({planned_full - sum_c['full_steps']} saved); SKETCH "
+          f"{sum_c['sketch_steps']} / {sum_off['sketch_steps']}, REFINE "
+          f"{sum_c['refine_steps']} / {sum_off['refine_steps']}; wall {sum_c['wall_s']} s / "
+          f"{sum_off['wall_s']} s")
+    # and with the ring but no spill: what the spill's demotions cost (each
+    # copies a slot to the host, a device sync)
+    _, _, sum_ns, _ = serve(dataclasses.replace(cached, backend="cuda", cache_spill_mb=0.0),
+                            [r for _, r in stream()])
+    print(f"[chip_smoke]   without the spill ring: {sum_ns['full_steps']} FULL passes, "
+          f"{sum_ns['demoted_full_steps']} + {sum_ns['demoted_sketch_steps']} demotions, wall "
+          f"{sum_ns['wall_s']} s, {sum_ns['step_time_by_backend']['cuda']['mean_s'] * 1e3:.2f} ms "
+          f"a micro-step (with it {sum_c['step_time_by_backend']['cuda']['mean_s'] * 1e3:.2f}, "
+          f"cache off {sum_off['step_time_by_backend']['cuda']['mean_s'] * 1e3:.2f})")
+    detail.update(cache_off=sum_off, no_spill=sum_ns)
+    t0 = _phase("serve cache off, no spill", t0)
+
+    # the exactness guarantee on the card: txt2img at threshold 0 == cache off
+    def txt2img():
+        reqs = [r for _, r in stream() if r.init_latent is None and r.mask is None]
+        for r in reqs:
+            r.policy = None  # every lane at the engine threshold
+        return reqs
+
+    _, zero, sum_zero, _ = serve(
+        dataclasses.replace(cached, backend="cuda", cache_threshold=0.0), txt2img())
+    _, off, _, _ = serve(dataclasses.replace(config, backend="cuda"), txt2img())
+    unequal = [names[r] for r in off if not np.array_equal(zero[r].latent, off[r].latent)]
+    print(f"[chip_smoke]   threshold 0 vs cache off, {len(off)} txt2img requests on cuda: "
+          f"{'bitwise equal' if not unequal else 'DIFFER: ' + str(unequal)}; "
+          f"{sum_zero['cache_inserts']} inserts, {sum_zero['demoted_full_steps']} demotions")
+    if unequal or sum_zero["demoted_full_steps"] or sum_zero["spill_promotions"]:
+        raise AssertionError(f"phase 6: threshold-0 cache is not bitwise cache-off: {unequal}")
+    t0 = _phase("threshold 0 vs off", t0)
+
+    # the static lockstep baseline against the continuous engine
+    pair = lambda: [GenRequest(rid=i, ctx=r.ctx, noise=r.noise, timesteps=MAX_STEPS)  # noqa: E731
+                    for i, (_, r) in enumerate(stream()[1:3])]
+    server = StaticServer(ucfg, dcfg, params, vae_params, N_LANES, backend="cuda",
+                          device=config.device)
+    server.warmup([MAX_STEPS])
+    with torch.no_grad():
+        st_done, st_sum = server.run(pair())
+    _, cont, _, _ = serve(dataclasses.replace(config, backend="cuda"), pair())
+    st_scale = max(1.0, max(float(np.abs(d.latent).max()) for d in cont.values()))
+    st_err = max(float(np.abs(d.latent - cont[d.rid].latent).max()) for d in st_done)
+    step_s = server.time_step_s(MAX_STEPS, iters=1)
+    print(f"[chip_smoke]   static vs continuous, 2 all-FULL requests on cuda: max |d| "
+          f"{st_err:.3g} (tol {SERVE_TOL * st_scale:.3g}); static wall {st_sum['wall_s']} s, "
+          f"{step_s * 1e3:.2f} ms a lockstep step (batch {N_LANES})")
+    if not st_err <= SERVE_TOL * st_scale:
+        raise AssertionError(f"phase 6: StaticServer differs from the engine by {st_err}")
+    detail["static"] = dict(summary=st_sum, err=st_err, scale=st_scale, step_ms=step_s * 1e3)
+
+    # micro-step time by branch class on the cached engine (host-inclusive,
+    # synchronised), and the cache's own costs
+    state, cache = eng_c._state, eng_c.cache
+    sel = torch.ones((N_LANES,), dtype=torch.bool, device=config.device)
+    src = torch.zeros((N_LANES,), dtype=torch.int64, device=config.device)
+    dist = torch.zeros((N_LANES,), device=config.device)
+    micro_ms = {}
+    with torch.no_grad():
+        for label, b in (("FULL", SM.FULL), ("SKETCH", SM.SKETCH), ("REFINE", SM.REFINE)):
+            micro_ms[label] = _ms(
+                torch, lambda: eng_c._micro(state, b, sel, src, dist, cache.state),
+                reps=3, queued=False)
+    lanes, slots = np.arange(N_LANES), np.arange(N_LANES) % cache.n_slots
+    insert_ms = _ms(torch, lambda: cache.insert_many(state.f_sk, state.f_rf, lanes, slots))
+    sig = np.zeros((ucfg.ctx_dim,), np.float32)
+    t = time.perf_counter()
+    for _ in range(1000):
+        cache.probe_distance(750, sig, -1, 0.15, 0)
+    probe_us = (time.perf_counter() - t) * 1e3
+    cache.reserve(750, sig, -7)  # a new key may evict (and demote); later calls refresh it
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(100):
+        slot = cache.reserve(750, sig, -7)
+        cache.insert_many(state.f_sk, state.f_rf, lanes[:1], np.array([slot]))
+    insert_host_us = (time.perf_counter() - t) * 1e4
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cache._demote(0)
+    torch.cuda.synchronize()
+    demote_ms = (time.perf_counter() - t) * 1e3
+    entry = next(iter(cache.spill._entries.values()))
+    t = time.perf_counter()
+    _upload_slot(cache.state, 0, entry.f_sk, entry.f_rf)
+    torch.cuda.synchronize()
+    promote_ms = (time.perf_counter() - t) * 1e3
+    print(f"[chip_smoke]   cached micro-step (2 lanes, CFG batch 4), cuda: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in micro_ms.items())
+          + f"; slot {slot_bytes / 2**20:.1f} MiB, insert of {N_LANES} slots {insert_ms:.3f} ms "
+          f"(device), reserve + insert of one {insert_host_us:.1f} us (host), probe "
+          f"{probe_us:.1f} us (host, {cache.n_slots} slots), demote "
+          f"{demote_ms:.2f} ms, promote {promote_ms:.2f} ms (host, synchronised)")
+    detail.update(micro_ms=micro_ms, insert_ms=insert_ms, insert_host_us=insert_host_us,
+                  probe_us=probe_us,
+                  slot_bytes=slot_bytes, demote_ms=demote_ms, promote_ms=promote_ms,
+                  names=names)
+    _phase("static and cache costs", t0)
+    return detail
+
+
 def main() -> int:
     try:
         import torch
@@ -670,6 +923,11 @@ def main() -> int:
                            latent_err=serve_err, latent_scale=scale, image_err=image_err)
     if not serve_err <= SERVE_TOL * scale:
         raise AssertionError(f"cuda latents differ from eager by {serve_err}")
+
+    t0 = _phase("serve compared", t0)
+
+    # 6. serve cached and conditioned -------------------------------------------------
+    detail["serve_cached"] = _serve_cached_phase(torch, np, K, CFG, config, models, t0)
 
     kernels = [
         _kernel_entry(name, src, rep, launches[name], totals[name])

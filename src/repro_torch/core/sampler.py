@@ -77,30 +77,59 @@ def feat_shape(ucfg: UNetConfig, entry_step: int, batch: int) -> tuple[int, ...]
     return (batch, size * size, c)
 
 
+def truncated_timesteps(dcfg: DiffusionConfig, base: int, n_exec: int) -> torch.Tensor:
+    """The last ``n_exec`` timesteps of a ``base``-step sampling schedule.
+
+    The img2img schedule: ``strength`` picks how many of the base schedule's
+    final steps execute, while the stride (and so the train timestep each
+    executed step sees) stays that of the untruncated schedule.
+    ``n_exec == base`` is the stock schedule.
+    """
+    if not 1 <= n_exec <= base:
+        raise ValueError(f"truncation wants {n_exec} of {base} steps")
+    stride = dcfg.timesteps_train // base
+    return (torch.arange(base) * stride).flip(0)[base - n_exec:]
+
+
 def pas_denoise(
     ucfg: UNetConfig,
     dcfg: DiffusionConfig,
     params: Params,
     plan: PASPlan | None,
-    x_t: torch.Tensor,  # [B, L, C] initial noise
+    x_t: torch.Tensor,  # [B, L, C] entry latent (noise, or a q_sampled init)
     ctx_cond: torch.Tensor,
     ctx_uncond: torch.Tensor,
     *,
+    ts=None,  # explicit descending timestep vector; None = the stock schedule
+    mask: torch.Tensor | None = None,  # [B, L, 1] inpaint mask (1 = generate)
+    x_init: torch.Tensor | None = None,  # [B, L, C] known latent under the mask
+    noise0: torch.Tensor | None = None,  # [B, L, C] fixed noise for the known region
     backend=None,
 ) -> torch.Tensor:
-    """Run the full PAS sampling loop (the straight-line reference).
+    """Run the full PAS sampling loop: the straight-line reference the
+    engine is held against.  ``plan=None`` is the original sampler: every
+    step is FULL.  ``ts`` and the inpaint tensors serve the conditioned tasks:
 
-    ``plan=None`` is the original sampler: every step is FULL.
+    * img2img: the strength-truncated schedule of :func:`truncated_timesteps`
+      and an entry latent seeded by ``q_sample`` at ``ts[0]``;
+    * inpainting: ``mask`` / ``x_init`` / ``noise0``; after every scheduler
+      step the masked-out region is replaced by the known latent re-noised
+      to that step's target timestep (the clean ``x_init`` after the last).
+      The blend keeps the denoised latent exactly where ``mask >= 1``.
     """
     sched = D.make_schedule(dcfg, x_t.device)
-    ts = D.sample_timesteps(dcfg).tolist()
-    total = dcfg.timesteps_sample
+    ts = D.sample_timesteps(dcfg) if ts is None else ts
+    ts = [int(t) for t in ts]
+    total = len(ts)
     t_prev = ts[1:] + [-1]
     guidance = dcfg.guidance_scale
     branches = [FULL] * total if plan is None else plan_to_branches(plan, total)
     e_sk, e_rf = (0, 0) if plan is None else _entry_steps(ucfg, plan)
     capture = () if plan is None else (e_sk, e_rf)
     ctx2 = torch.cat([ctx_cond, ctx_uncond], dim=0)
+    if mask is not None:
+        x_init = torch.zeros_like(x_t) if x_init is None else x_init
+        noise0 = torch.zeros_like(x_t) if noise0 is None else noise0
 
     f_sk = torch.zeros(feat_shape(ucfg, e_sk, 2 * x_t.shape[0]), device=x_t.device)
     f_rf = torch.zeros(feat_shape(ucfg, e_rf, 2 * x_t.shape[0]), device=x_t.device)
@@ -123,4 +152,8 @@ def pas_denoise(
             x, pndm = D.pndm_step(sched, pndm, x, eps, t, tp)
         else:
             x = D.ddim_step(sched, x, eps, t, tp)
+        if mask is not None:
+            ab = D._alpha_prev(sched, torch.tensor(tp, device=x.device))
+            known = torch.sqrt(ab) * x_init + torch.sqrt(1.0 - ab) * noise0
+            x = torch.where(mask >= 1.0, x, mask * x + (1.0 - mask) * known)
     return x

@@ -6,9 +6,10 @@ Port of ``repro/serving/config.py``:
 * :func:`init_models`: config -> (ucfg, dcfg, params, vae_params), the one
   place served weights are made, from ``torch.Generator(seed)`` on the
   engine's device (random weights, as the JAX package serves);
+* :func:`build_policy`: the process-wide quality resolver for an engine;
 * :func:`build_engine`: config -> :class:`EngineBundle`.
 
-The quality policy and the shift-score profile are not ported yet.
+Not ported yet: the sharded engine (``--shards``) and the HTTP front end.
 """
 from __future__ import annotations
 
@@ -19,10 +20,16 @@ import torch
 
 from repro_torch.common.types import DiffusionConfig, UNetConfig
 from repro_torch.configs import get_unet_config
+from repro_torch.core.shift_score import load_profile
 from repro_torch.models import unet as U
 from repro_torch.models import vae as V
 from repro_torch.serving.engine import DiffusionEngine, EngineConfig
-from repro_torch.serving.scheduler import FIFOScheduler, PlanAwareScheduler
+from repro_torch.serving.policy import QualityPolicy
+from repro_torch.serving.scheduler import (
+    CacheAwareScheduler,
+    FIFOScheduler,
+    PlanAwareScheduler,
+)
 
 Params = dict[str, Any]
 
@@ -35,10 +42,12 @@ class EngineBundle:
     config: EngineConfig
     params: Params
     vae_params: Params | None
+    policy: QualityPolicy
 
 
 def from_args(args: Any, *, decode_images: bool = True) -> EngineConfig:
-    """Map the ``repro_torch.launch.serve`` flags onto one :class:`EngineConfig`."""
+    """Map the ``repro_torch.launch.serve`` flags onto one :class:`EngineConfig`;
+    missing attributes fall back to the engine defaults."""
     unet = getattr(args, "unet", "sd_toy")
     n_up = U.n_up_steps(get_unet_config(unet))
     return EngineConfig(
@@ -47,10 +56,16 @@ def from_args(args: Any, *, decode_images: bool = True) -> EngineConfig:
         l_sketch=min(3, n_up),
         l_refine=min(2, n_up),
         decode_images=decode_images,
+        cache_mode=getattr(args, "cache", "off"),
+        cache_slots=getattr(args, "cache_slots", 16),
+        cache_threshold=getattr(args, "cache_threshold", 0.15),
+        cache_t_bucket=getattr(args, "cache_bucket", 125),
+        cache_spill_mb=getattr(args, "cache_spill_mb", 0.0),
         backend=getattr(args, "kernels", None),
         device=getattr(args, "device", "cuda"),
         unet=unet,
         seed=getattr(args, "seed", 0),
+        profile=getattr(args, "profile", None),
         window=getattr(args, "window", 4),
     )
 
@@ -68,7 +83,19 @@ def init_models(
     return ucfg, dcfg, params, vae_params
 
 
+def build_policy(config: EngineConfig, ucfg: UNetConfig, dcfg: DiffusionConfig) -> QualityPolicy:
+    """The quality resolver for an engine built from ``config``: its cache
+    geometry plus the shift-score profile named by ``config.profile``."""
+    profile = profile_ts = None
+    if config.profile:
+        profile, profile_ts = load_profile(config.profile)
+    return QualityPolicy.for_engine(ucfg, dcfg, config, profile=profile, profile_ts=profile_ts)
+
+
 def default_scheduler(config: EngineConfig) -> FIFOScheduler:
+    """Cache-armed engines admit warm requests first; otherwise plan-aware."""
+    if config.cache_mode != "off":
+        return CacheAwareScheduler(window=config.window)
     return PlanAwareScheduler(window=config.window)
 
 
@@ -88,4 +115,6 @@ def build_engine(
         ucfg, dcfg, params, vae_params, config,
         scheduler=scheduler if scheduler is not None else default_scheduler(config),
     )
-    return EngineBundle(engine, ucfg, dcfg, config, params, vae_params)
+    return EngineBundle(
+        engine, ucfg, dcfg, config, params, vae_params, build_policy(config, ucfg, dcfg)
+    )

@@ -1,16 +1,24 @@
-"""Continuous-batching diffusion serving engine, single device, cache off.
+"""Continuous-batching diffusion serving engine, single device (+ static lockstep baseline).
 
-Port of ``repro/serving/engine.py::DiffusionEngine``.  The engine advances a
-fixed set of *lanes* through the PAS denoise loop one micro-step at a time.
-Lanes hold requests at different denoise steps; each micro-step runs one
-branch class (FULL / SKETCH / REFINE), chosen by the packing policy, as one
-batched U-Net call.  A lane retires through the VAE decoder the moment its
-own schedule ends and is backfilled from the admission queue at once.
+Port of ``repro/serving/engine.py``.  The engine advances a fixed set of
+*lanes* through the PAS denoise loop one micro-step at a time.  Lanes hold
+requests at different denoise steps; each micro-step runs one branch class
+(FULL / SKETCH / REFINE), chosen by the packing policy, as one batched
+U-Net call.  A lane retires through the VAE decoder the moment its own
+schedule ends and is backfilled from the admission queue at once.
 
-Not ported yet, and refused with ``ValueError``: the feature cache
-(``cache_mode`` other than "off"), the sharded engine (``n_shards > 1``),
-and requests carrying ``mask``, ``init_latent``, ``base_timesteps`` or
-``policy`` (inpaint, img2img, the quality policy).
+Requests may be txt2img, img2img (a strength-truncated schedule entered
+through ``q_sample``) or inpaint (a mask blended every step), and may carry
+a quality policy (``repro_torch.serving.policy``) whose per-step cache
+thresholds the micro-step compares on the device.  With the feature cache
+on (``cache_mode`` "intra" or "cross", ``repro_torch.serving.cache``), a
+planned FULL step with a warm, close-enough slot runs as SKETCH on the
+slot's features, and a planned SKETCH step whose policy allows it as
+REFINE.  :class:`StaticServer` is the fixed-size lockstep baseline.
+
+Not ported yet: the sharded engine (``n_shards > 1``, with its sharded
+cache and warm-shard routing), refused with ``ValueError``, and the HTTP
+serving layer above the engine.
 """
 from __future__ import annotations
 
@@ -23,18 +31,33 @@ import torch
 
 from repro_torch.common.types import DiffusionConfig, PASPlan, UNetConfig
 from repro_torch.core import sampler as SM
+from repro_torch.models import diffusion as D
 from repro_torch.models import unet as U
 from repro_torch.models import vae as V
 from repro_torch.serving import lanes as LN
+from repro_torch.serving.cache import FeatureCache, prompt_signature
 from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.policy import ResolvedPolicy
 from repro_torch.serving.scheduler import FIFOScheduler
 
 Params = dict[str, Any]
 
+#: a lane's first ``CACHE_MIN_STEP`` plan steps are never served from the
+#: cache (the JAX engine's default ``cache_min_step``)
+CACHE_MIN_STEP = 1
+
 
 @dataclasses.dataclass(eq=False)  # identity semantics: queues remove by object
 class GenRequest:
-    """One txt2img generation request."""
+    """One conditioned generation request (txt2img, img2img or inpaint).
+
+    ``timesteps`` is the executed step count.  An img2img request also
+    carries ``base_timesteps`` (the untruncated schedule the stride comes
+    from; ``timesteps < base_timesteps`` is a strength truncation) and
+    ``init_latent`` (the known image, noised to the entry timestep at
+    submission).  An inpaint request carries ``mask`` (1 = generate, 0 =
+    keep ``init_latent``; blended every micro-step).
+    """
 
     rid: int
     ctx: np.ndarray  # [ctx_len, ctx_dim] prompt embedding
@@ -42,17 +65,42 @@ class GenRequest:
     timesteps: int
     plan: PASPlan | None = None
     arrival_s: float = 0.0  # offset from stream start
-    # the JAX request's conditioned-task fields; not ported yet, refused at submit
-    policy: Any = None
+    #: per-request quality resolution; None = the engine-global threshold
+    policy: ResolvedPolicy | None = None
+    #: [L, C] known latent for img2img/inpaint; None = txt2img
     init_latent: np.ndarray | None = None
+    #: [L] or [L, 1] inpaint mask in [0, 1] (1 = generate); None = no mask
     mask: np.ndarray | None = None
+    #: untruncated schedule length; None = ``timesteps`` (no truncation)
     base_timesteps: int | None = None
 
     _lane_plan: LN.LanePlan | None = dataclasses.field(default=None, repr=False)
+    _sig: np.ndarray | None = dataclasses.field(default=None, repr=False)
+    #: [L, C] lane entry latent: the noised init of a truncated img2img
+    #: request, else ``noise`` (set at submission)
+    _entry: np.ndarray | None = dataclasses.field(default=None, repr=False)
 
     def branch_vector(self) -> np.ndarray:
         assert self._lane_plan is not None, "request not yet submitted"
         return self._lane_plan.branches[: self.timesteps]
+
+    @property
+    def sched_offset(self) -> int:
+        """Schedule-truncation cache key: base minus executed steps (0 for
+        the stock schedule); warm hits never cross different offsets."""
+        base = self.timesteps if self.base_timesteps is None else self.base_timesteps
+        return base - self.timesteps
+
+    @property
+    def quality_tier(self) -> str:
+        """Resolved tier label ("full"/"pas" without a quality policy)."""
+        if self.policy is not None:
+            return self.policy.tier
+        return "pas" if self.plan is not None else "full"
+
+    @property
+    def refine_demotions(self) -> bool:
+        return self.policy is not None and self.policy.refine_demotions
 
 
 @dataclasses.dataclass
@@ -77,14 +125,46 @@ def _not_ported(what: str) -> ValueError:
     return ValueError(f"{what} is not yet ported to repro_torch")
 
 
+def torch_device(device: str) -> torch.device:
+    """``device`` as a torch device; raises when it is CUDA and no GPU is visible."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' to run the plain PyTorch path on the CPU"
+        )
+    return dev
+
+
+def resolve_kernels(device: str, backend: str | None) -> str:
+    """The kernel backend: ``backend`` if given, else "cuda" on a CUDA
+    device and "eager" on the CPU."""
+    if backend is not None:
+        return backend
+    return "cuda" if torch.device(device).type == "cuda" else "eager"
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     n_lanes: int = 4
     max_steps: int = 64
-    l_sketch: int = 3  # cache geometry of the PAS plans (see repro's engine)
+    l_sketch: int = 3  # feature-cache geometry, engine-wide
     l_refine: int = 2
     decode_images: bool = True
+    # -- feature cache (repro_torch.serving.cache) -------------------------------
+    #: "off" | "intra" (hits only on the same request's slots) | "cross"
+    #: (hits only on other requests' slots)
     cache_mode: str = "off"
+    cache_slots: int = 16
+    #: relative prompt-signature distance bound; hits need a distance
+    #: strictly below it, so 0.0 never hits.  The default a request without
+    #: a quality policy gets; a policy brings its own per-step thresholds.
+    cache_threshold: float = 0.15
+    #: timestep bucket width in train-timestep units
+    cache_t_bucket: int = 125
+    #: host-RAM spill ring under the device slots, in MiB: evictions demote
+    #: their features there and admission promotes matches back; 0 = off
+    cache_spill_mb: float = 0.0
     n_shards: int = 1
     #: kernel backend: "eager" (plain PyTorch) or "cuda" (the Hopper
     #: kernels); None picks "cuda" on a CUDA device and "eager" on the CPU
@@ -94,11 +174,17 @@ class EngineConfig:
     # -- construction-level fields (read by repro_torch.serving.config) -------
     unet: str = "sd_toy"
     seed: int = 0
+    #: shift-score profile (.npz) refining the policy's thresholds per bucket
+    profile: str | None = None
     window: int = 4  # PlanAwareScheduler alignment window
 
     def __post_init__(self):
-        if self.cache_mode != "off":
-            raise _not_ported(f"cache_mode={self.cache_mode!r} (the feature cache)")
+        if self.cache_mode not in ("off", "intra", "cross"):
+            raise ValueError(f"cache_mode must be off|intra|cross, got {self.cache_mode!r}")
+        if self.cache_spill_mb < 0:
+            raise ValueError("cache_spill_mb must be >= 0")
+        if self.n_shards < 1:
+            raise ValueError("n_shards must be >= 1")
         if self.n_shards != 1:
             raise _not_ported(f"n_shards={self.n_shards} (the sharded engine)")
         if self.backend not in (None, "eager", "cuda"):
@@ -109,19 +195,11 @@ class EngineConfig:
     @property
     def kernels(self) -> str:
         """The resolved kernel backend."""
-        if self.backend is not None:
-            return self.backend
-        return "cuda" if torch.device(self.device).type == "cuda" else "eager"
+        return resolve_kernels(self.device, self.backend)
 
     def torch_device(self) -> torch.device:
         """The engine's device; raises when it is CUDA and no GPU is visible."""
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on a CUDA device and none is available; "
-                "pass device='cpu' to run the plain PyTorch path on the CPU"
-            )
-        return dev
+        return torch_device(self.device)
 
 
 class DiffusionEngine:
@@ -144,6 +222,19 @@ class DiffusionEngine:
         self.scheduler = scheduler if scheduler is not None else FIFOScheduler()
         self.metrics = ServingMetrics()
 
+        self.cache: FeatureCache | None = None
+        if config.cache_mode != "off":
+            self.cache = FeatureCache(
+                ucfg, self.e_sk, self.e_rf,
+                n_slots=config.cache_slots,
+                threshold=config.cache_threshold,
+                t_bucket=config.cache_t_bucket,
+                mode=config.cache_mode,
+                spill_mb=config.cache_spill_mb,
+                device=self.device,
+            )
+        if hasattr(self.scheduler, "attach_cache"):
+            self.scheduler.attach_cache(self.cache)
         self._state = LN.init_lanes(
             ucfg, config.n_lanes, config.max_steps, self.e_sk, self.e_rf, self.device
         )
@@ -165,11 +256,6 @@ class DiffusionEngine:
     # -- submission ---------------------------------------------------------
 
     def submit(self, req: GenRequest) -> None:
-        for field in ("mask", "init_latent", "policy"):
-            if getattr(req, field) is not None:
-                raise _not_ported(f"a request carrying {field!r}")
-        if req.base_timesteps not in (None, req.timesteps):
-            raise _not_ported("a strength-truncated (img2img) request")
         if req.plan is not None:
             req.plan.validate(req.timesteps, U.n_up_steps(self.ucfg))
             if (req.plan.l_sketch, req.plan.l_refine) != (
@@ -180,10 +266,62 @@ class DiffusionEngine:
                     f"({req.plan.l_sketch}, {req.plan.l_refine}) does not match "
                     f"engine ({self.config.l_sketch}, {self.config.l_refine})"
                 )
-        req._lane_plan = LN.make_plan_arrays(
-            self.dcfg, req.timesteps, req.plan, self.config.max_steps
+        if req.policy is not None and not isinstance(req.policy, ResolvedPolicy):
+            raise TypeError(f"policy must be a ResolvedPolicy, got {type(req.policy).__name__}")
+        threshold = (
+            self.config.cache_threshold
+            if req.policy is None
+            else req.policy.threshold_spec(self.config.cache_threshold)
         )
+        base = req.timesteps if req.base_timesteps is None else int(req.base_timesteps)
+        req._lane_plan = LN.make_plan_arrays(
+            self.dcfg, req.timesteps, req.plan, self.config.max_steps,
+            threshold=threshold, base_timesteps=base,
+        )
+        L, c = req.noise.shape
+        if req.mask is not None:
+            m = np.asarray(req.mask, np.float32)
+            if m.ndim == 1:
+                m = m[:, None]
+            if m.shape != (L, 1):
+                raise ValueError(
+                    f"mask shape {np.asarray(req.mask).shape} does not match "
+                    f"latent [{L}] (want [{L}] or [{L}, 1])"
+                )
+            if float(m.min()) < 0.0 or float(m.max()) > 1.0:
+                raise ValueError("mask values must lie in [0, 1]")
+            req.mask = m
+        if req.init_latent is not None and np.asarray(req.init_latent).shape != (L, c):
+            raise ValueError(
+                f"init latent shape {np.asarray(req.init_latent).shape} does not "
+                f"match noise shape {(L, c)}"
+            )
+        if req.init_latent is not None and req.timesteps < base:
+            # strength-truncated img2img: the lane enters mid-schedule, seeded
+            # with the known image noised to the entry timestep (the same
+            # q_sample the straight-line reference uses), in float32 on the host
+            entry = D.q_sample(
+                D.make_schedule(self.dcfg),
+                torch.as_tensor(np.asarray(req.init_latent, np.float32))[None],
+                torch.tensor([int(req._lane_plan.ts[0])]),
+                torch.as_tensor(np.asarray(req.noise, np.float32))[None],
+            )[0]
+            req._entry = entry.numpy()
+        else:
+            req._entry = req.noise
+        req._sig = prompt_signature(req.ctx)
+        self.metrics.record_submission(req.quality_tier)
         self.scheduler.add(req)
+
+    def _admit_extras(self, req: GenRequest):
+        """(mask, x_init, noise0) lane tensors of an inpaint request; all None
+        otherwise (the lane then takes the all-ones mask, the identity)."""
+        if req.mask is None:
+            return None, None, None
+        L, c = req.noise.shape
+        to = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(self.device)  # noqa: E731
+        x_init = np.zeros((L, c), np.float32) if req.init_latent is None else req.init_latent
+        return to(req.mask), to(x_init), to(req.noise)
 
     # -- introspection ------------------------------------------------------
 
@@ -195,38 +333,148 @@ class DiffusionEngine:
     def n_pending(self) -> int:
         return len(self.scheduler)
 
+    def progress(self) -> list[tuple[int, int, int]]:
+        """``(rid, completed steps, total steps)`` per in-flight lane."""
+        return [
+            (r.rid, int(self._lane_step[i]), r.timesteps)
+            for i, r in enumerate(self._lane_req)
+            if r is not None
+        ]
+
+    # -- cancellation -------------------------------------------------------
+
+    def cancel(self, rid: int) -> bool:
+        """Abort one request wherever it is: a queued request leaves the
+        admission queue; an in-flight request's lane is released at once, so
+        the next :meth:`step` can backfill it.  False when the rid is
+        unknown here (completed, never submitted, or cancelled before)."""
+        if self.scheduler.remove(rid):
+            return True
+        for lane, req in enumerate(self._lane_req):
+            if req is not None and req.rid == rid:
+                LN.release(self._state, lane)
+                self._lane_req[lane] = None
+                self._stall[lane] = 0
+                return True
+        return False
+
     def _active_lanes(self) -> list[int]:
         return [i for i, r in enumerate(self._lane_req) if r is not None]
 
+    def _remaining_branches(self) -> list[np.ndarray]:
+        return [
+            self._lane_req[i]._lane_plan.branches[self._lane_step[i] : self._lane_req[i].timesteps]
+            for i in self._active_lanes()
+        ]
+
     # -- event loop ---------------------------------------------------------
+
+    def _prefetch_spill(self, req: GenRequest) -> None:
+        """Admission-time spill prefetch: for each planned FULL step of the
+        request that no device slot would serve yet, probe the host spill
+        ring and promote a match onto the device ring, so the lane's first
+        planned FULL step finds it there.  Threshold-0 steps never probe."""
+        cache = self.cache
+        if cache is None or cache.spill is None:
+            return
+        lp, sig, off = req._lane_plan, req._sig, req.sched_offset
+        for i in range(lp.n_steps):
+            if lp.branches[i] != SM.FULL or i < CACHE_MIN_STEP:
+                continue
+            thr = float(lp.thr[i])
+            if thr <= 0:
+                continue
+            t = int(lp.ts[i])
+            if cache.probe(t, sig, req.rid, thr, off) is not None:
+                continue  # already warm on the device ring
+            if cache.promote(t, sig, req.rid, thr, off) is not None:
+                self.metrics.spill_promotions += 1
 
     def _backfill(self, now_s: float) -> None:
         for lane, holder in enumerate(self._lane_req):
             if holder is not None:
                 continue
-            remaining = [
-                r._lane_plan.branches[self._lane_step[i] : r.timesteps]
-                for i, r in enumerate(self._lane_req)
-                if r is not None
-            ]
-            req = self.scheduler.next_request(remaining)
+            req = self.scheduler.next_request(self._remaining_branches())
             if req is None:
                 return
+            self._prefetch_spill(req)
             LN.admit(
                 self._state, lane,
-                torch.as_tensor(req.noise, dtype=torch.float32).to(self.device),
+                torch.as_tensor(req._entry, dtype=torch.float32).to(self.device),
                 torch.as_tensor(req.ctx, dtype=torch.float32).to(self.device),
                 req._lane_plan,
+                *self._admit_extras(req),
             )
             self._lane_req[lane] = req
             self._lane_step[lane] = 0
             self._lane_admit_s[lane] = now_s
             self._stall[lane] = 0
 
+    def _probe_eligible(self, req: GenRequest, lane: int, planned: int) -> bool:
+        """Whether a lane's next planned step may be served from the cache:
+        planned FULL steps always probe; planned SKETCH steps only when the
+        request's quality policy opted into SKETCH->REFINE demotions."""
+        if self._lane_step[lane] < CACHE_MIN_STEP:
+            return False
+        if planned == SM.FULL:
+            return True
+        return planned == SM.SKETCH and req.refine_demotions
+
+    def _probe_cache(
+        self, active: list[int], planned: np.ndarray
+    ) -> dict[int, tuple[int, float]]:
+        """{lane: (slot, signature distance)} for the active lanes whose next
+        planned step a warm slot could serve, each probed at the request's
+        own per-step threshold.  Read-only: counters and LRU touches settle
+        in :meth:`step` for the lanes that actually advance."""
+        hits: dict[int, tuple[int, float]] = {}
+        if self.cache is None:
+            return hits
+        for k, lane in enumerate(active):
+            req = self._lane_req[lane]
+            if not self._probe_eligible(req, lane, int(planned[k])):
+                continue
+            step = self._lane_step[lane]
+            hit = self.cache.probe_distance(
+                int(req._lane_plan.ts[step]), req._sig, req.rid,
+                float(req._lane_plan.thr[step]), req.sched_offset,
+            )
+            if hit is not None:
+                hits[lane] = hit
+        return hits
+
+    def _reserve_captures(self, advanced: np.ndarray) -> None:
+        """After a FULL micro-step: reserve a slot for each fresh capture on
+        the host (conflict-free within the batch), then fill them all in one
+        indexed copy from the lane caches the micro-step just wrote."""
+        n = self.config.n_lanes
+        lanes = np.zeros((n,), np.int64)
+        slots = np.full((n,), self.cache.n_slots, np.int64)  # padding: dropped
+        taken: set[int] = set()
+        for k, lane in enumerate(advanced):
+            req = self._lane_req[lane]
+            t = int(req._lane_plan.ts[self._lane_step[lane]])
+            if self._lane_step[lane] >= CACHE_MIN_STEP:
+                self.cache.note_miss()  # probed FULL executed as FULL
+            slot = self.cache.reserve(
+                t, req._sig, req.rid, exclude=taken, offset=req.sched_offset
+            )
+            if slot is None:  # ring smaller than the FULL batch
+                continue
+            taken.add(slot)
+            lanes[k] = int(lane)
+            slots[k] = slot
+        if taken:
+            self.cache.insert_many(self._state.f_sk, self._state.f_rf, lanes, slots)
+
     def step(
         self, now_s: float = 0.0, clock: Callable[[], float] | None = None
     ) -> list[CompletedRequest]:
-        """Backfill, run one micro-step, retire finished lanes."""
+        """Backfill, run one micro-step, retire finished lanes.
+
+        ``clock`` (same origin as ``now_s``) re-reads the time after the
+        retirement sync, so completion stamps include the queued device work.
+        """
         self._backfill(now_s)
         active = self._active_lanes()
         if not active:
@@ -236,22 +484,68 @@ class DiffusionEngine:
         planned = np.array(
             [self._lane_req[i]._lane_plan.branches[self._lane_step[i]] for i in active], np.int64
         )
-        b_star = self.scheduler.pick_branch(planned, self._stall[active])
-        # the advance mask follows from the host-known plans: no device sync
-        sel = np.zeros((self.config.n_lanes,), bool)
-        advanced = np.asarray(active)[planned == b_star]
+        # cache demotion: a planned FULL step with a warm slot runs as SKETCH
+        # on the slot's features; a planned SKETCH step whose policy allows
+        # it as REFINE.  The vote is over the effective classes.
+        hit_slots = self._probe_cache(active, planned)
+        planned_of = {int(lane): int(planned[k]) for k, lane in enumerate(active)}
+        effective = planned.copy()
+        for k, lane in enumerate(active):
+            if lane in hit_slots:
+                effective[k] = SM.SKETCH if planned[k] == SM.FULL else SM.REFINE
+        b_star = self.scheduler.pick_branch(effective, self._stall[active])
+
+        # the advance mask follows from the host-known plans and cache keys:
+        # no device sync
+        n = self.config.n_lanes
+        sel = np.zeros((n,), bool)
+        advanced = np.asarray(active)[effective == b_star]
         sel[advanced] = True
-        self._micro(self._state, b_star, torch.from_numpy(sel).to(self.device))
+        sel_t = torch.from_numpy(sel).to(self.device)
+        n_demoted = n_demoted_rf = 0
+        if self.cache is not None:
+            feat_src = np.full((n,), -1, np.int64)
+            # float32, as the JAX engine ships it: the device compares this
+            # distance strictly against the lane's float32 threshold
+            feat_dist = np.full((n,), np.inf, np.float32)
+            if b_star in (SM.SKETCH, SM.REFINE):
+                for lane in advanced:
+                    hit = hit_slots.get(int(lane))
+                    if hit is None:
+                        # a planned partial step that probed and missed
+                        if self._probe_eligible(self._lane_req[lane], int(lane),
+                                                planned_of[int(lane)]):
+                            self.cache.note_miss()
+                        continue
+                    slot, dist = hit
+                    feat_src[lane] = slot
+                    feat_dist[lane] = dist
+                    self.cache.note_hit(slot)
+                    if planned_of[int(lane)] == SM.FULL:
+                        n_demoted += 1
+                    else:
+                        n_demoted_rf += 1
+            self._micro(
+                self._state, b_star, sel_t,
+                torch.from_numpy(feat_src).to(self.device),
+                torch.from_numpy(feat_dist).to(self.device),
+                self.cache.state,
+            )
+            if b_star == SM.FULL:
+                self._reserve_captures(advanced)
+        else:
+            self._micro(self._state, b_star, sel_t)
 
         self._lane_step[sel] += 1
         self._stall[active] += 1
         self._stall[sel] = 0
         n_adv = len(advanced)
         self.metrics.record_step(
-            self.config.n_lanes, len(active), n_adv,
+            n, len(active), n_adv,
             n_full=n_adv if b_star == SM.FULL else 0,
             n_sketch=n_adv if b_star == SM.SKETCH else 0,
             n_refine=n_adv if b_star == SM.REFINE else 0,
+            n_demoted=n_demoted, n_demoted_refine=n_demoted_rf,
         )
 
         done: list[CompletedRequest] = []
@@ -282,13 +576,18 @@ class DiffusionEngine:
 
     def run(self, requests: Sequence[GenRequest]) -> tuple[list[CompletedRequest], dict]:
         """Serve a request stream to completion, every request queued up
-        front (arrival offsets are not replayed).  Metrics reset per call."""
+        front in arrival order.  Metrics and the feature cache reset per
+        call, so ``run`` output is a function of the stream (drive
+        :meth:`step` directly to keep warmth across calls).
+        """
         self.metrics = ServingMetrics()
+        if self.cache is not None:
+            self.cache.reset()
         t0 = time.perf_counter()
         clock = lambda: time.perf_counter() - t0  # noqa: E731
+        done: list[CompletedRequest] = []
         for req in sorted(requests, key=lambda r: r.arrival_s):
             self.submit(req)
-        done: list[CompletedRequest] = []
         while self.n_pending or self.n_active:
             done.extend(self.step(now_s=clock(), clock=clock))
         self.metrics.wall_s = time.perf_counter() - t0
@@ -299,4 +598,150 @@ class DiffusionEngine:
             kernels=self.config.kernels,
             device=str(self.device),
         )
+        if self.cache is not None:
+            summary.update(self.cache.stats())
         return done, summary
+
+
+class StaticServer:
+    """Fixed-size FIFO batches running the PAS sampler in lockstep: the
+    baseline continuous batching is measured against.
+
+    The whole batch runs ``max(timesteps)`` of its members with the plan
+    ``plan_fn`` gives that count, and short batches are padded by repeating
+    the last request.
+    ``idle_lane_frac`` in the summary is the share of lane-steps spent on
+    padding or lockstep overshoot.
+    """
+
+    def __init__(
+        self,
+        ucfg: UNetConfig,
+        dcfg: DiffusionConfig,
+        params: Params,
+        vae_params: Params | None,
+        batch: int,
+        *,
+        plan_fn: Callable[[int], PASPlan | None] = lambda t: None,
+        decode_images: bool = True,
+        backend: str | None = None,
+        device: str = "cuda",
+    ):
+        self.ucfg, self.dcfg, self.params, self.batch = ucfg, dcfg, params, batch
+        self.plan_fn = plan_fn
+        self.device = torch_device(device)
+        self.kernels = resolve_kernels(device, backend)
+        self.vae_params = vae_params if decode_images else None
+
+    def _generate(self, total_steps: int, noise: torch.Tensor, ctx: torch.Tensor):
+        d = dataclasses.replace(self.dcfg, timesteps_sample=total_steps)
+        x0 = SM.pas_denoise(
+            self.ucfg, d, self.params, self.plan_fn(total_steps), noise, ctx,
+            torch.zeros_like(ctx), backend=self.kernels,
+        )
+        if self.vae_params is None:
+            return x0, None
+        lhw = (self.ucfg.latent_size, self.ucfg.latent_size)
+        return x0, V.vae_decode(self.vae_params, x0, lhw, backend=self.kernels)
+
+    def _dummy_inputs(self):
+        L = self.ucfg.latent_size**2
+        noise = torch.zeros((self.batch, L, self.ucfg.in_channels), device=self.device)
+        ctx = torch.zeros((self.batch, self.ucfg.ctx_len, self.ucfg.ctx_dim), device=self.device)
+        return noise, ctx
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup(self, timesteps: Sequence[int]) -> None:
+        """Run the lockstep sampler once for every listed step count (the
+        kernels build and the weights are prepared on the first call)."""
+        noise, ctx = self._dummy_inputs()
+        for t in timesteps:
+            self._generate(t, noise, ctx)
+        self._sync()
+
+    def time_step_s(self, timesteps: int, iters: int = 3) -> float:
+        """Median per-denoise-step wall seconds of the lockstep sampler,
+        each call synchronised with the card."""
+        noise, ctx = self._dummy_inputs()
+        self._generate(timesteps, noise, ctx)
+        self._sync()
+        walls = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            self._generate(timesteps, noise, ctx)
+            self._sync()
+            walls.append(time.perf_counter() - t0)
+        walls.sort()
+        return walls[len(walls) // 2] / timesteps
+
+    def run(self, requests: Sequence[GenRequest]) -> tuple[list[CompletedRequest], dict]:
+        """Serve a request stream in arrival order, one lockstep batch at a time."""
+        batch = self.batch
+        pending = sorted(requests, key=lambda r: r.arrival_s)
+        metrics = ServingMetrics()
+        done: list[CompletedRequest] = []
+        total_lane_steps = useful_lane_steps = 0
+        t0 = time.perf_counter()
+        for i in range(0, len(pending), batch):
+            group = pending[i : i + batch]
+            admit_s = time.perf_counter() - t0
+            t_max = max(r.timesteps for r in group)
+            pad = batch - len(group)
+            as_t = lambda arrs: torch.as_tensor(np.stack(arrs), dtype=torch.float32)  # noqa: E731
+            noise = as_t([r.noise for r in group] + [group[-1].noise] * pad).to(self.device)
+            ctx = as_t([r.ctx for r in group] + [group[-1].ctx] * pad).to(self.device)
+            x0, imgs = self._generate(t_max, noise, ctx)
+            x0 = x0.cpu().numpy()  # syncs the batch
+            imgs = None if imgs is None else imgs.cpu().numpy()
+            now = time.perf_counter() - t0
+            total_lane_steps += batch * t_max
+            useful_lane_steps += sum(r.timesteps for r in group)
+            for _ in range(t_max):
+                metrics.record_step(batch, len(group), len(group))
+            for lane, req in enumerate(group):
+                done.append(
+                    CompletedRequest(
+                        rid=req.rid,
+                        latent=x0[lane],
+                        image=None if imgs is None else imgs[lane],
+                        submitted_s=req.arrival_s,
+                        admitted_s=admit_s,
+                        completed_s=now,
+                    )
+                )
+                metrics.record_completion(done[-1].latency_s, done[-1].queue_wait_s)
+        metrics.wall_s = time.perf_counter() - t0
+        idle = 1.0 - useful_lane_steps / max(total_lane_steps, 1)
+        summary = dict(
+            metrics.summary(),
+            mode="static",
+            lanes=batch,
+            idle_lane_frac=round(idle, 3),
+            kernels=self.kernels,
+            device=str(self.device),
+        )
+        return done, summary
+
+
+def serve_static(
+    ucfg: UNetConfig,
+    dcfg: DiffusionConfig,
+    params: Params,
+    vae_params: Params | None,
+    requests: Sequence[GenRequest],
+    batch: int,
+    *,
+    plan_fn: Callable[[int], PASPlan | None] = lambda t: None,
+    decode_images: bool = True,
+    backend: str | None = None,
+    device: str = "cuda",
+) -> tuple[list[CompletedRequest], dict]:
+    """One-shot convenience wrapper around :class:`StaticServer`."""
+    server = StaticServer(
+        ucfg, dcfg, params, vae_params, batch,
+        plan_fn=plan_fn, decode_images=decode_images, backend=backend, device=device,
+    )
+    return server.run(requests)

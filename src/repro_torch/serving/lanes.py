@@ -13,12 +13,14 @@ Layout (unchanged from the JAX package):
   CFG-doubled ``[2N, ...]`` layout of :func:`cfg_unet_step`: rows ``i`` and
   ``N + i`` belong to lane ``i``;
 * plans are padded to ``max_steps``; ``step[i] < n_steps[i]`` marks a live
-  lane, and an empty lane has ``n_steps == 0`` and all-zero tensors.
+  lane, and an empty lane has ``n_steps == 0`` and all-zero tensors;
+* ``thr`` holds each lane's per-step cache threshold (the quality policy's
+  resolution), compared on the device in float32 by the cached micro-step.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -27,6 +29,7 @@ from repro_torch.common.types import DiffusionConfig, PASPlan, UNetConfig
 from repro_torch.core import sampler as SM
 from repro_torch.models import diffusion as D
 from repro_torch.models.backend import resolve_backend
+from repro_torch.serving.cache import CacheState, select_entry_features
 
 Params = dict[str, Any]
 
@@ -46,8 +49,9 @@ class LaneState:
     t_prev: torch.Tensor  # [N, max_steps] successor timestep (-1 at the end)
     step: torch.Tensor  # [N] current step index into the plan
     n_steps: torch.Tensor  # [N] plan length; 0 marks an empty lane
-    #: [N, L, 1] inpaint mask; all ones for txt2img, where the per-step blend
-    #: is exactly the identity (kept so the micro-step is the JAX one)
+    thr: torch.Tensor  # [N, max_steps] float32 per-step cache threshold
+    #: [N, L, 1] inpaint mask (1 = generate, 0 = keep the init latent); all
+    #: ones for txt2img, where the per-step blend is exactly the identity
     mask: torch.Tensor
     x_init: torch.Tensor  # [N, L, C] known latent under the mask
     noise0: torch.Tensor  # [N, L, C] noise re-noising the known region
@@ -64,30 +68,46 @@ class LanePlan(NamedTuple):
     ts: np.ndarray  # [max_steps] int32
     t_prev: np.ndarray  # [max_steps] int32
     n_steps: int
+    thr: np.ndarray  # [max_steps] float32 per-step cache threshold (0 = never reuse)
 
 
 def make_plan_arrays(
-    dcfg: DiffusionConfig, timesteps: int, plan: PASPlan | None, max_steps: int
+    dcfg: DiffusionConfig,
+    timesteps: int,
+    plan: PASPlan | None,
+    max_steps: int,
+    threshold: float | Callable[[np.ndarray], np.ndarray] = 0.0,
+    base_timesteps: int | None = None,
 ) -> LanePlan:
-    """One request's branch/timestep vectors, padded to ``max_steps``."""
+    """One request's branch/timestep/threshold vectors, padded to ``max_steps``.
+
+    ``threshold`` is a scalar or a callable from the steps' train timesteps
+    to per-step thresholds (the quality policy's per-bucket form).
+    ``base_timesteps`` is the img2img truncation
+    (:func:`repro_torch.core.sampler.truncated_timesteps`); None is the
+    stock schedule.
+    """
     if timesteps > max_steps:
         raise ValueError(f"request wants {timesteps} steps, engine max is {max_steps}")
-    if timesteps < 1:
-        raise ValueError(f"request wants {timesteps} steps")
-    stride = dcfg.timesteps_train // timesteps
-    ts = (np.arange(timesteps, dtype=np.int64) * stride)[::-1].astype(np.int32)
+    base = timesteps if base_timesteps is None else int(base_timesteps)
+    ts = SM.truncated_timesteps(dcfg, base, timesteps).numpy().astype(np.int32)
     t_prev = np.concatenate([ts[1:], np.array([-1], np.int32)])
     branches = (
         np.full((timesteps,), SM.FULL, np.int32) if plan is None
         else np.asarray(SM.plan_to_branches(plan, timesteps), np.int32)
     )
+    thr = np.asarray(
+        threshold(ts) if callable(threshold) else np.full((timesteps,), threshold), np.float32
+    )
+    if thr.shape != (timesteps,):
+        raise ValueError(f"threshold resolver returned shape {thr.shape}, want ({timesteps},)")
 
-    def pad(a: np.ndarray) -> np.ndarray:
-        out = np.zeros((max_steps,), np.int32)
+    def pad(a: np.ndarray, dtype=np.int32) -> np.ndarray:
+        out = np.zeros((max_steps,), dtype)
         out[:timesteps] = a
         return out
 
-    return LanePlan(pad(branches), pad(ts), pad(t_prev), timesteps)
+    return LanePlan(pad(branches), pad(ts), pad(t_prev), timesteps, pad(thr, np.float32))
 
 
 def init_lanes(
@@ -111,6 +131,7 @@ def init_lanes(
         t_prev=z(n_lanes, max_steps, dtype=i64),
         step=z(n_lanes, dtype=i64),
         n_steps=z(n_lanes, dtype=i64),
+        thr=z(n_lanes, max_steps),
         mask=torch.ones((n_lanes, L, 1), device=device),
         x_init=z(n_lanes, L, c),
         noise0=z(n_lanes, L, c),
@@ -120,11 +141,15 @@ def init_lanes(
 def admit(
     state: LaneState,
     lane: int,
-    noise: torch.Tensor,  # [L, C] request's entry latent
+    noise: torch.Tensor,  # [L, C] request's entry latent (noise or seeded init)
     ctx: torch.Tensor,  # [ctx_len, ctx_dim]
     plan: LanePlan,
+    mask: torch.Tensor | None = None,  # [L, 1] inpaint mask; None = all ones
+    x_init: torch.Tensor | None = None,  # [L, C] known latent; None = zeros
+    noise0: torch.Tensor | None = None,  # [L, C] known-region noise; None = zeros
 ) -> None:
-    """Scatter one txt2img request into an (empty) lane, in place."""
+    """Scatter one request into an (empty) lane, resetting its sampler state,
+    in place."""
     n = state.n_lanes
     dev = state.x.device
     state.x[lane] = noise
@@ -140,9 +165,10 @@ def admit(
     state.t_prev[lane] = torch.from_numpy(plan.t_prev).to(dev)
     state.step[lane] = 0
     state.n_steps[lane] = plan.n_steps
-    state.mask[lane] = 1.0
-    state.x_init[lane] = 0.0
-    state.noise0[lane] = 0.0
+    state.thr[lane] = torch.from_numpy(plan.thr).to(dev)
+    state.mask[lane] = 1.0 if mask is None else mask
+    state.x_init[lane] = 0.0 if x_init is None else x_init
+    state.noise0[lane] = 0.0 if noise0 is None else noise0
 
 
 def release(state: LaneState, lane: int) -> None:
@@ -161,25 +187,51 @@ def make_micro_step(
     device,
     backend=None,
 ):
-    """Build the continuous-batching micro-step ``micro_step(state, b_star, sel)``.
+    """Build the continuous-batching micro-step
+    ``micro_step(state, b_star, sel, feat_src=None, feat_dist=None, cache=None)``.
 
     It advances, by exactly one denoise step and in place, every lane the
     host-chosen advance mask ``sel`` ([N] bool) selects: one batched U-Net
     call over the whole lane batch in branch class ``b_star``, which the
     host knows, so only that branch runs (the JAX version's ``lax.switch``).
     Lanes outside ``sel`` (and empty lanes) are carried through unchanged by
-    masking.  Partial branches consume the lane's own captured features; the
-    feature cache's cached form is not ported yet.
+    masking.
+
+    Without a ``cache`` the partial branches consume the lane's own captured
+    features.  With one, ``feat_src`` ([N] slot index, -1 = own) and
+    ``feat_dist`` ([N] float32 probed signature distance) pick cached
+    features: a slot is consumed only where ``feat_dist`` is strictly below
+    the lane's own threshold at its current step (``state.thr``), compared
+    on the device in float32, so a threshold-0 lane never consumes a slot
+    whatever the host says.  A SKETCH step adopts the selected entry as the
+    lane's sketch/refine cache (a demoted FULL skipped its own refresh); a
+    REFINE step consumes it for that step only.  With no slot used the
+    selection is an exact passthrough, bit-identical to the uncached step.
     """
     bk = resolve_backend(backend)
     sched = D.make_schedule(dcfg, device)
     guidance = dcfg.guidance_scale
     use_pndm = dcfg.scheduler == "pndm"
 
-    def micro_step(state: LaneState, b_star: int, sel: torch.Tensor) -> None:
+    def micro_step(
+        state: LaneState,
+        b_star: int,
+        sel: torch.Tensor,
+        feat_src: torch.Tensor | None = None,  # [N] int64 cache slot per lane, -1 = own
+        feat_dist: torch.Tensor | None = None,  # [N] float32 probed distance (inf = none)
+        cache: CacheState | None = None,
+    ) -> None:
         idx = torch.clamp(state.step, max=state.branches.shape[1] - 1)[:, None]
         t = torch.gather(state.ts, 1, idx)[:, 0]
         tp = torch.gather(state.t_prev, 1, idx)[:, 0]
+
+        entry_sk, entry_rf = state.f_sk, state.f_rf
+        if cache is not None and b_star != SM.FULL:
+            thr_t = torch.gather(state.thr, 1, idx)[:, 0]
+            use = (feat_src >= 0) & (feat_dist < thr_t)
+            entry_rf = select_entry_features(state.f_rf, cache.f_rf, feat_src, use)
+            if b_star == SM.SKETCH:
+                entry_sk = select_entry_features(state.f_sk, cache.f_sk, feat_src, use)
 
         f_sk_new, f_rf_new = state.f_sk, state.f_rf
         if b_star == SM.FULL:
@@ -190,12 +242,14 @@ def make_micro_step(
         elif b_star == SM.SKETCH:
             eps, _ = SM.cfg_unet_step(
                 ucfg, params, guidance, state.x, t, state.ctx2,
-                entry_step=e_sk, entry_feat=state.f_sk, backend=bk,
+                entry_step=e_sk, entry_feat=entry_sk, backend=bk,
             )
+            # the selection becomes the lane's features of record
+            f_sk_new, f_rf_new = entry_sk, entry_rf
         elif b_star == SM.REFINE:
             eps, _ = SM.cfg_unet_step(
                 ucfg, params, guidance, state.x, t, state.ctx2,
-                entry_step=e_rf, entry_feat=state.f_rf, backend=bk,
+                entry_step=e_rf, entry_feat=entry_rf, backend=bk,
             )
         else:
             raise ValueError(f"unknown branch class {b_star}")
@@ -208,7 +262,8 @@ def make_micro_step(
             x_new = D.ddim_step_batched(sched, state.x, eps, t, tp)
             ets_new, n_new = state.ets, state.n_ets
 
-        # inpaint blend (all-ones mask for txt2img: where() keeps x_new exactly)
+        # inpaint blend: re-noise the known region to each lane's target
+        # timestep; where() keeps x_new exactly under an all-ones mask
         ab = D._alpha_prev(sched, tp)[:, None, None]
         known = torch.sqrt(ab) * state.x_init + torch.sqrt(1.0 - ab) * state.noise0
         x_new = torch.where(

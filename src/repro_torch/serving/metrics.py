@@ -1,8 +1,9 @@
-"""Serving metrics: latency percentiles, throughput, lane occupancy.
+"""Serving metrics: latency percentiles, throughput, lane occupancy, cache reuse.
 
-The port's own copy of the single-device, cache-off part of
+The port's own copy of the single-device part of
 ``repro/serving/metrics.py``: one sample per micro-step (occupancy, advance
-efficiency, executed branch class, host wall time) and one per completed
+efficiency, executed and cache-demoted branch classes, host wall time), one
+per submitted request (its resolved quality tier) and one per completed
 request (queue wait and latency), collapsed by :meth:`summary`.
 """
 from __future__ import annotations
@@ -20,10 +21,23 @@ class ServingMetrics:
     advance_eff: list[float] = dataclasses.field(default_factory=list)
     micro_steps: int = 0
     lane_steps_advanced: int = 0
-    #: lane-steps executed per branch class (FULL = a full U-Net pass)
+    #: lane-steps executed per branch class (FULL = a full U-Net pass),
+    #: demoted steps counted under the class they executed as
     full_steps: int = 0
     sketch_steps: int = 0
     refine_steps: int = 0
+    #: planned-FULL lane-steps served from the feature cache as SKETCH
+    demoted_steps: int = 0
+    #: planned-SKETCH lane-steps served from the feature cache as REFINE
+    demoted_refine_steps: int = 0
+    #: executed demotions served from the device slot ring
+    hbm_hits: int = 0
+    #: spill-resident captures lifted back onto the device ring at admission
+    spill_promotions: int = 0
+    #: admissions redirected to a cache-warm shard (sharded engine; 0 here)
+    gossip_routed: int = 0
+    #: submitted requests per resolved quality tier ("full"/"pas" = no knob)
+    quality_mix: dict[str, int] = dataclasses.field(default_factory=dict)
     #: host wall seconds spent in ``engine.step`` per kernel backend
     #: (dispatch + any retirement sync): {backend: [count, total_s]}
     step_time_by_backend: dict[str, list] = dataclasses.field(default_factory=dict)
@@ -32,15 +46,24 @@ class ServingMetrics:
     def record_step(
         self, n_lanes: int, n_active: int, n_advanced: int,
         n_full: int = 0, n_sketch: int = 0, n_refine: int = 0,
+        n_demoted: int = 0, n_demoted_refine: int = 0,
     ) -> None:
         self.micro_steps += 1
         self.lane_steps_advanced += n_advanced
         self.full_steps += n_full
         self.sketch_steps += n_sketch
         self.refine_steps += n_refine
+        self.demoted_steps += n_demoted
+        self.demoted_refine_steps += n_demoted_refine
+        # every executed demotion was served by a device-resident slot
+        self.hbm_hits += n_demoted + n_demoted_refine
         self.occupancy.append(n_active / max(n_lanes, 1))
         if n_active:
             self.advance_eff.append(n_advanced / n_active)
+
+    def record_submission(self, tier: str) -> None:
+        """Count one submitted request under its resolved quality tier."""
+        self.quality_mix[tier] = self.quality_mix.get(tier, 0) + 1
 
     def record_step_time(self, backend: str, seconds: float) -> None:
         acc = self.step_time_by_backend.setdefault(backend, [0, 0.0])
@@ -69,6 +92,16 @@ class ServingMetrics:
             "full_steps": self.full_steps,
             "sketch_steps": self.sketch_steps,
             "refine_steps": self.refine_steps,
+            "demoted_full_steps": self.demoted_steps,
+            "demoted_sketch_steps": self.demoted_refine_steps,
+            # fraction of planned FULL lane-steps served from the cache
+            "cache_hit_rate": round(
+                self.demoted_steps / max(self.full_steps + self.demoted_steps, 1), 3
+            ),
+            "hbm_hits": self.hbm_hits,
+            "spill_promotions": self.spill_promotions,
+            "gossip_routed": self.gossip_routed,
+            "quality_mix": dict(sorted(self.quality_mix.items())),
             "step_time_by_backend": {
                 k: {"steps": c, "mean_s": round(t / max(c, 1), 6)}
                 for k, (c, t) in sorted(self.step_time_by_backend.items())

@@ -124,21 +124,38 @@ def test_cpu_device_with_cuda_kernels_raises():
     assert EngineConfig().kernels == "cuda"
 
 
-@pytest.mark.parametrize(
-    "kw", [dict(cache_mode="cross"), dict(n_shards=2)], ids=["cache", "sharded"]
-)
+@pytest.mark.parametrize("kw", [dict(n_shards=2)], ids=["sharded"])
 def test_engine_config_refuses_unported(kw):
+    """Only the sharded engine (and with it the sharded cache) is unported."""
     with pytest.raises(ValueError, match="not yet ported"):
         _engine_config(**kw)
 
 
+@pytest.mark.parametrize("mode", ["off", "intra", "cross"])
+def test_engine_config_accepts_cache_modes(mode):
+    assert _engine_config(cache_mode=mode).cache_mode == mode
+    with pytest.raises(ValueError, match="off\\|intra\\|cross"):
+        _engine_config(cache_mode=mode + "x")
+
+
 @pytest.mark.parametrize("field", ["mask", "init_latent", "policy"])
 def test_engine_refuses_conditioned_requests(field):
+    """Malformed conditioned requests are refused at submit (well-formed
+    ones are served: tests/test_torch_scenarios.py)."""
     bundle = CFG.build_engine(_engine_config())
     req = _port_requests()[0]
-    setattr(req, field, np.ones_like(req.noise) if field != "policy" else object())
-    with pytest.raises(ValueError, match="not yet ported"):
+    bad = {
+        "mask": (np.ones((7, 1), np.float32), ValueError, "mask shape"),
+        "init_latent": (np.ones((3, 4), np.float32), ValueError, "init latent shape"),
+        "policy": (object(), TypeError, "ResolvedPolicy"),
+    }[field]
+    setattr(req, field, bad[0])
+    with pytest.raises(bad[1], match=bad[2]):
         bundle.engine.submit(req)
+    if field == "mask":
+        req.mask = np.full((TOY.latent_size**2,), 1.5, np.float32)
+        with pytest.raises(ValueError, match=r"\[0, 1\]"):
+            bundle.engine.submit(req)
 
 
 def test_build_engine_serves_on_cpu():
