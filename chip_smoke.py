@@ -47,7 +47,19 @@ version.  Phases:
    cache off (FULL passes without the cache); the txt2img part at
    threshold 0 against the cache off, bitwise equal on ``cuda``;
    ``StaticServer`` against the continuous engine; micro-step times by
-   branch class and the cache's own costs (probe, insert, demote, promote).
+   branch class and the cache's own costs (probe, insert, demote, promote);
+7. calibrate: the pipeline of ``examples/torch_pas_calibration.py`` at
+   sd_v14 (16 steps, 3 batches of 2 prompts): stage 1 (FULL passes that
+   capture every up-step's input, copied to the host; shift scores, the
+   profile, D* and the outlier blocks) on ``cuda`` (launches counted) and on
+   ``eager``, held against each other with the 2-means cost gap and the
+   outlier margin printed; the profile saved, loaded through
+   ``serving/config.py`` and served (2 requests, ``cross`` cache,
+   ``balanced``); stages 2-4 (cost function, plan search, validation of up
+   to 6 plans by cosine against the all-FULL sampler) on ``cuda`` (launches
+   counted) and ``eager``, qualities and valid plans held against each
+   other; the FULL-with-capture micro-step against a FULL one, and the
+   copy of one step's captures to the host.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It prints the
 per-kernel JSON line, the card line and, last, the ``{"ok": true, ...}``
@@ -158,6 +170,14 @@ MATMUL_CASES = [
 #: sums round to either side.  Stats: rtol / atol, as the JAX package's test.
 REG_TOL = {"stream_norm": 2e-5, "fused_matmul": 1e-4, "bfloat16": 2.0**-7}
 STATS_RTOL, STATS_ATOL = 1e-4, 1e-3
+#: phase 7: the example's calibration schedule and batches (2 prompts each)
+CAL_STEPS, CAL_BATCHES = 16, 3
+#: phase 7, cuda against eager, absolute: raw shift scores, the min-max
+#: normalised profile (a block's range divides its late, small scores, so
+#: float32 differences of 1e-6 relative grow about tenfold) and stage-4
+#: cosines; the bucket factors of the in-memory profile against the served
+#: one, which was saved in float32 (one float32 step)
+SCORE_TOL, PROFILE_TOL, COSINE_TOL, FACTOR_TOL = 1e-4, 1e-3, 1e-5, 2.0**-23
 
 
 def _phase(name: str, t0: float) -> float:
@@ -674,6 +694,188 @@ def _serve_cached_phase(torch, np, K, CFG, config, models, t0):
     return detail
 
 
+def _example(name: str):
+    """``examples/<name>.py`` as a module (its stage functions are the
+    entry points a user calls)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _calibrate_phase(torch, np, K, CFG, config, models, full_pass_ms, t0):
+    """Phase 7 -> its detail.  Raises on the first failed check."""
+    import argparse
+
+    from repro_torch.common.types import DiffusionConfig
+    from repro_torch.core import framework as FW
+    from repro_torch.core import phase_division as PD
+    from repro_torch.core import sampler as SM
+    from repro_torch.core import shift_score as SS
+    from repro_torch.launch.serve import make_diffusion_requests
+    from repro_torch.models import diffusion as D
+    from repro_torch.models import unet as U
+    from repro_torch.serving.policy import profile_bucket_factors
+
+    cal = _example("torch_pas_calibration")
+    ucfg, _, params, _ = models
+    dcfg = DiffusionConfig(timesteps_sample=CAL_STEPS)
+    n_up = U.n_up_steps(ucfg)
+    dev = config.device
+    detail: dict = {}
+
+    def counted(backend, fn):
+        """(fn's result, seconds, launches on cuda): counts set to 0 just
+        before and read just after."""
+        K.reset_launch_counts()
+        start = time.perf_counter()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        launches = K.launch_counts() if backend == "cuda" else None
+        if backend == "cuda" and any(launches[name] <= 0 for name in SOURCES):
+            raise AssertionError(f"phase 7: a kernel of the path never launched: {launches}")
+        return out, secs, launches
+
+    # the calibration micro-step: FULL with every up-step captured, then the copy
+    ctx, noise = cal.prompt_batch(ucfg, 1, dev)
+    ctx2 = torch.cat([ctx, torch.zeros_like(ctx)], dim=0)
+    every = tuple(range(n_up))
+    with torch.no_grad():
+        step = lambda cap: SM.cfg_unet_step(  # noqa: E731
+            ucfg, params, dcfg.guidance_scale, noise, 981, ctx2, capture=cap, backend="cuda")
+        plain_ms = _ms(torch, lambda: step(()), reps=3, queued=False)
+        cap_ms = _ms(torch, lambda: step(every), reps=3, queued=False)
+        _, cap = step(every)
+        torch.cuda.synchronize()
+        copy_ms = []
+        for _ in range(3):
+            start = time.perf_counter()
+            host = {k: v.to("cpu", copy=True) for k, v in cap.items()}
+            copy_ms.append((time.perf_counter() - start) * 1e3)
+        cap_mib = sum(v.numel() * v.element_size() for v in host.values()) / 2**20
+        del cap, host
+    print(f"[chip_smoke]   calibration micro-step (CFG batch {2 * cal.BATCH}), cuda: FULL "
+          f"capturing all {n_up} up-steps {cap_ms:.2f} ms, FULL {plain_ms:.2f} ms (phase 3's "
+          f"FULL pass {full_pass_ms:.2f} ms); copy of the {cap_mib:.1f} MiB of captures to the "
+          f"host {min(copy_ms):.2f}-{max(copy_ms):.2f} ms a step "
+          f"({cap_mib / 2**10 / (min(copy_ms) / 1e3):.2f} GiB/s)")
+    detail.update(capture_ms=cap_ms, full_ms=plain_ms, full_pass_ms=full_pass_ms,
+                  copy_ms=copy_ms, capture_mib=cap_mib)
+
+    # stage 1 on both backends
+    stage1 = {}
+    for backend in ("cuda", "eager"):
+        (profile, runs), secs, launches = counted(backend, lambda: cal.profile_prompts(
+            ucfg, dcfg, params, CAL_BATCHES, dev, backend))
+        d_star = PD.find_transition(profile)
+        costs = np.sort(PD.transition_costs(profile))
+        per_block, thresh = SS.late_scores(profile.scores)
+        margin = float(np.abs(per_block - thresh).min())
+        stage1[backend] = (profile, runs, d_star)
+        print(f"[chip_smoke]   stage 1 {backend}: {secs:.1f} s, D* {d_star}, outlier blocks "
+              f"{profile.outlier_blocks}; 2-means cost best {costs[0]:.6g}, next "
+              f"{costs[1]:.6g} (gap {costs[1] - costs[0]:.3g}); outlier margin {margin:.3g} "
+              f"(threshold {thresh:.4f})" + (f"; launches {launches}" if launches else ""))
+        detail[f"stage1_{backend}"] = dict(
+            seconds=secs, launches=launches, d_star=d_star, outliers=profile.outlier_blocks,
+            cost_gap=float(costs[1] - costs[0]), outlier_margin=margin,
+            scores=profile.scores.tolist())
+        t0 = _phase(f"calibrate stage 1 {backend}", t0)
+    (prof_c, runs_c, d_c), (prof_e, runs_e, d_e) = stage1["cuda"], stage1["eager"]
+    scale = max(1.0, max(float(x.abs().max()) for x, _ in runs_e))
+    lat_err = max(float((xc - xe).abs().max()) for (xc, _), (xe, _) in zip(runs_c, runs_e))
+    score_err = max(float(np.abs(sc - se).max()) for (_, sc), (_, se) in zip(runs_c, runs_e))
+    prof_err = float(np.abs(prof_c.scores - prof_e.scores).max())
+    print(f"[chip_smoke]   stage 1 cuda vs eager: latents max |d| {lat_err:.3g} on max |latent| "
+          f"{scale:.3g} (tol {SERVE_TOL * scale:.3g}); raw scores {score_err:.3g} (tol "
+          f"{SCORE_TOL}); profile {prof_err:.3g} (tol {PROFILE_TOL})")
+    detail.update(latent_err=lat_err, latent_scale=scale, score_err=score_err,
+                  profile_err=prof_err)
+    if not lat_err <= SERVE_TOL * scale:
+        raise AssertionError(f"phase 7: cuda latents differ from eager by {lat_err}")
+    if not (score_err <= SCORE_TOL and prof_err <= PROFILE_TOL):
+        raise AssertionError(f"phase 7: scores differ by {score_err}, profiles by {prof_err}")
+    if (d_c, prof_c.outlier_blocks) != (d_e, prof_e.outlier_blocks):
+        raise AssertionError(f"phase 7: D* / outliers {d_c} {prof_c.outlier_blocks} on cuda, "
+                             f"{d_e} {prof_e.outlier_blocks} on eager")
+
+    # the profile round trip: saved, loaded by the serve path, served
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = str(ROOT / "build" / "calibration_profile.npz")
+    ts = D.sample_timesteps(dcfg).numpy()
+    SS.save_profile(path, prof_c, ts=ts)
+    args = argparse.Namespace(
+        batch=N_LANES, timesteps=MAX_STEPS, unet=config.unet, cache="cross", quality="balanced",
+        profile=path, device=dev, kernels=config.backend, requests=2, pas=False, seed=0)
+    bundle = CFG.build_engine(CFG.from_args(args), models=models)
+    loaded, loaded_ts = SS.load_profile(path)
+    bucket = dict(t_train=dcfg.timesteps_train, t_bucket=bundle.config.cache_t_bucket)
+    served = bundle.policy.bucket_factors
+    in_memory = profile_bucket_factors(prof_c, ts, **bucket)
+    factor_err = max(abs(a - b) for a, b in zip(served, in_memory))
+    print(f"[chip_smoke]   profile {path}: served bucket factors {served}; in memory max |d| "
+          f"{factor_err:.3g} (tol {FACTOR_TOL:.3g})")
+    if served != profile_bucket_factors(loaded, loaded_ts, **bucket) or not (
+            len(served) == len(in_memory) and factor_err <= FACTOR_TOL):
+        raise AssertionError(f"phase 7: served factors {served}, in memory {in_memory}")
+    with torch.no_grad():
+        done, summary = bundle.engine.run(make_diffusion_requests(args, ucfg, bundle.policy))
+    torch.cuda.synchronize()
+    if sorted(d.rid for d in done) != [0, 1] or not all(
+            np.isfinite(d.latent).all() for d in done):
+        raise AssertionError(f"phase 7: served {sorted(d.rid for d in done)}, or not finite")
+    keys = ("wall_s", "full_steps", "sketch_steps", "refine_steps", "quality_mix")
+    print(f"[chip_smoke]   served 2 requests with the profile (cross, balanced): "
+          f"{ {k: summary[k] for k in keys} }")
+    detail.update(bucket_factors=served, factor_err=factor_err, served=summary)
+    t0 = _phase("calibrate profile served", t0)
+
+    # stages 2-4 on both backends
+    cons = cal.plan_constraints(CAL_STEPS, prof_c, d_c)
+    f = FW.cost_function(ucfg)
+    sols = FW.search_plans(ucfg, cons)
+    print(f"[chip_smoke]   stage 2 f(l) = {[round(f(l), 3) for l in range(1, n_up + 1)]}; stage 3: "
+          f"{len(sols)} feasible plans under {cons}")
+    if not sols:
+        raise AssertionError("phase 7: no feasible plan")
+    t0 = _phase("calibrate stages 2-3", t0)
+    stage4 = {}
+    for backend in ("cuda", "eager"):
+        cands = [FW.Solution(s.plan, s.mac_reduction) for s in sols]
+        valid, secs, launches = counted(backend, lambda: cal.validate_plans(
+            ucfg, dcfg, params, cands, cons.min_quality, dev, backend))
+        evaluated = [s for s in cands if s.quality is not None]
+        stage4[backend] = (evaluated, valid)
+        print(f"[chip_smoke]   stage 4 {backend}: {secs:.1f} s, qualities "
+              f"{[round(s.quality, 6) for s in evaluated]}, {len(valid)} valid"
+              + (f"; launches {launches}" if launches else ""))
+        detail[f"stage4_{backend}"] = dict(
+            seconds=secs, launches=launches,
+            evaluated=[(dataclasses.astuple(s.plan), s.mac_reduction, s.quality)
+                       for s in evaluated],
+            valid=[dataclasses.astuple(s.plan) for s in valid])
+        t0 = _phase(f"calibrate stage 4 {backend}", t0)
+    (ev_c, valid_c), (ev_e, valid_e) = stage4["cuda"], stage4["eager"]
+    q_err = max(abs(a.quality - b.quality) for a, b in zip(ev_c, ev_e))
+    print(f"[chip_smoke]   stage 4 cuda vs eager: cosine max |d| {q_err:.3g} (tol {COSINE_TOL})")
+    detail["quality_err"] = q_err
+    if not (len(ev_c) == len(ev_e) and q_err <= COSINE_TOL):
+        raise AssertionError(f"phase 7: stage-4 qualities differ by {q_err}")
+    if [s.plan for s in valid_c] != [s.plan for s in valid_e]:
+        raise AssertionError("phase 7: the valid plans differ between cuda and eager")
+    if valid_c:
+        best = valid_c[0]
+        print(f"[chip_smoke]   best plan {best.plan}: MAC reduction {best.mac_reduction:.2f}x at "
+              f"quality {best.quality:.4f}")
+    else:
+        print(f"[chip_smoke]   no plan met the quality bar {cons.min_quality}")
+    return detail
+
+
 def main() -> int:
     try:
         import torch
@@ -928,6 +1130,11 @@ def main() -> int:
 
     # 6. serve cached and conditioned -------------------------------------------------
     detail["serve_cached"] = _serve_cached_phase(torch, np, K, CFG, config, models, t0)
+
+    # 7. calibrate ------------------------------------------------------------------------
+    detail["calibrate"] = _calibrate_phase(
+        torch, np, K, CFG, config, models, pass_ms[f"FULL micro-step {batch}"]["cuda"],
+        time.perf_counter())
 
     kernels = [
         _kernel_entry(name, src, rep, launches[name], totals[name])

@@ -7,6 +7,10 @@ host, so the loop is a Python loop and each step runs only its branch:
     FULL:   full U-Net, refresh the sketch/refine feature cache
     SKETCH: partial run with the top L_sketch blocks  (sketching phase)
     REFINE: partial run with the top L_refine blocks  (refinement phase)
+
+:func:`denoise_with_capture` is the calibration path: all-FULL sampling that
+copies the main-branch input of the given up-steps to host memory at every
+step, for the shift scores of ``repro_torch.core.shift_score``.
 """
 from __future__ import annotations
 
@@ -157,3 +161,41 @@ def pas_denoise(
             known = torch.sqrt(ab) * x_init + torch.sqrt(1.0 - ab) * noise0
             x = torch.where(mask >= 1.0, x, mask * x + (1.0 - mask) * known)
     return x
+
+
+def denoise_with_capture(
+    ucfg: UNetConfig,
+    dcfg: DiffusionConfig,
+    params: Params,
+    x_t: torch.Tensor,  # [B, L, C] initial noise
+    ctx_cond: torch.Tensor,
+    ctx_uncond: torch.Tensor,
+    capture_steps: tuple[int, ...],
+    *,
+    backend=None,
+) -> tuple[torch.Tensor, list[dict[int, torch.Tensor]]]:
+    """Full sampling with per-timestep feature capture (calibration path).
+
+    Returns the final latent and ``traj[t][step]``, the [2B, ...]
+    cond/uncond-stacked main-branch input of up-step ``step`` at sampling
+    step ``t``, copied to host memory as soon as the step has run: the
+    trajectory of a large model does not fit beside it on the device, and a
+    copy cannot change when a later call writes into its source.
+    """
+    sched = D.make_schedule(dcfg, x_t.device)
+    ts = [int(t) for t in D.sample_timesteps(dcfg)]
+    ctx2 = torch.cat([ctx_cond, ctx_uncond], dim=0)
+    x = x_t
+    pndm = D.pndm_init(x_t.shape, x_t.dtype, x_t.device)
+    traj = []
+    for t, tp in zip(ts, ts[1:] + [-1]):
+        eps, cap = cfg_unet_step(
+            ucfg, params, dcfg.guidance_scale, x, t, ctx2,
+            capture=tuple(capture_steps), backend=backend,
+        )
+        if dcfg.scheduler == "pndm":
+            x, pndm = D.pndm_step(sched, pndm, x, eps, t, tp)
+        else:
+            x = D.ddim_step(sched, x, eps, t, tp)
+        traj.append({k: v.to("cpu", copy=True) for k, v in cap.items()})
+    return x, traj

@@ -1,4 +1,5 @@
-"""repro_torch stands alone: it imports neither JAX nor the repro package."""
+"""repro_torch stands alone: it imports neither JAX nor the repro package,
+and neither do the port's examples (``examples/torch_*.py``)."""
 import pathlib
 import re
 import subprocess
@@ -8,6 +9,10 @@ import pytest
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PKG = SRC / "repro_torch"
+EXAMPLES = sorted((SRC.parent / "examples").glob("torch_*.py"))
+#: test ids are file names; a later module that shares its name with an
+#: older one is named with its package, so the older one keeps its id
+QUALIFIED = {PKG / "core" / "metrics.py"}
 MODULES = sorted(
     ".".join(p.relative_to(SRC).with_suffix("").parts).removesuffix(".__init__")
     for p in PKG.rglob("*.py")
@@ -30,7 +35,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert int(out.stdout.strip()) >= len(MODULES)
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: p.name)
+@pytest.mark.parametrize(
+    "path", sorted(PKG.rglob("*.py")) + EXAMPLES,
+    ids=lambda p: f"{p.parent.name}/{p.name}" if p in QUALIFIED else p.name,
+)
 def test_no_source_file_imports_jax_or_repro(path):
     text = path.read_text()
     assert not re.search(r"^\s*(import jax|from jax)", text, re.M), path
