@@ -59,7 +59,21 @@ version.  Phases:
    to 6 plans by cosine against the all-FULL sampler) on ``cuda`` (launches
    counted) and ``eager``, qualities and valid plans held against each
    other; the FULL-with-capture micro-step against a FULL one, and the
-   copy of one step's captures to the host.
+   copy of one step's captures to the host;
+8. serve over HTTP: ``python -m repro_torch.launch.serve --http`` as a
+   subprocess on the card (sd_v14, 2 lanes, 8 steps, ``cross`` cache,
+   ``cuda``, ``--max-inflight 4``); six payloads sent one at a time through
+   the port's ``FrontendClient`` (txt2img ``balanced``, img2img at 0.75, a
+   half-mask inpaint, K=2 variations, ``exact``, the first again with
+   ``allow_cache: false``), each stream held to the event protocol and its
+   ``done`` digest to the digest of the same payload served in the same
+   order through an in-process engine built from the same flags (launches
+   counted: the three served kernels must launch); a burst of 8 streams
+   (429s, one cancelled through ``/cancel``, one by dropping its
+   connection) and ``/stats`` after it; the ``exact`` payload again;
+   ``/cache/keys`` since 0 and since its version; ``POST /shutdown`` and a
+   clean exit; each request's HTTP, driver and in-process latency, and the
+   front end's cost per request.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It prints the
 per-kernel JSON line, the card line and, last, the ``{"ok": true, ...}``
@@ -178,6 +192,35 @@ CAL_STEPS, CAL_BATCHES = 16, 3
 #: cosines; the bucket factors of the in-memory profile against the served
 #: one, which was saved in float32 (one float32 step)
 SCORE_TOL, PROFILE_TOL, COSINE_TOL, FACTOR_TOL = 1e-4, 1e-3, 1e-5, 2.0**-23
+#: phase 8: the HTTP server as a user starts it; the same flags, through
+#: ``CFG.from_args``, give the in-process reference engine its config
+P8_SERVER = "repro_torch.launch.serve"
+P8_PORT_FILE = "build/http.port"
+P8_ARGS = [
+    "--unet", UNET, "--batch", str(N_LANES), "--timesteps", str(MAX_STEPS), "--cache", "cross",
+    "--kernels", "cuda", "--http", "127.0.0.1:0", "--port-file", P8_PORT_FILE,
+    "--max-inflight", "4",
+]
+#: phase 8's digest gate, served one at a time; the last is the first again,
+#: opted out of the cache (cold as the first was, so the same digest)
+P8_BALANCED = dict(task="txt2img", prompt="a lighthouse at dusk", seed=1, timesteps=MAX_STEPS,
+                   quality="balanced")
+P8_EXACT = dict(task="txt2img", prompt="a lighthouse at dusk", seed=5, timesteps=MAX_STEPS,
+                quality="exact")
+P8_PAYLOADS = [
+    P8_BALANCED,
+    dict(task="img2img", prompt="a barn in snow", seed=2, timesteps=MAX_STEPS,
+         init={"seed": 3}, strength=0.75),
+    dict(task="inpaint", prompt="a red door", seed=3, timesteps=MAX_STEPS, init={"seed": 4},
+         mask={"kind": "half"}),
+    dict(task="variations", prompt="an owl", seed=4, timesteps=MAX_STEPS, variants=2),
+    P8_EXACT,
+    dict(P8_BALANCED, allow_cache=False),
+]
+#: phase 8's burst: concurrent streams against --max-inflight 4
+P8_BURST = 8
+#: phase 8's bound on each wait for the server (start-up, a stream, the drain)
+P8_WAIT_S = 300
 
 
 def _phase(name: str, t0: float) -> float:
@@ -876,6 +919,240 @@ def _calibrate_phase(torch, np, K, CFG, config, models, full_pass_ms, t0):
     return detail
 
 
+def _check_stream(events: list[dict], payload: dict) -> dict:
+    """The event protocol of one stream: ``queued`` first, then per member
+    the step events k = 1..n in order, exactly one terminal event, last;
+    it must be ``done``.  Returns the terminal event."""
+    kinds = [ev["event"] for ev in events]
+    terminal = [k for k in kinds if k in ("done", "cancelled", "error")]
+    if kinds[0] != "queued" or terminal != ["done"] or kinds[-1] != "done":
+        raise AssertionError(f"phase 8: {payload} streamed {kinds}")
+    done, k = events[-1], payload.get("variants", 1)
+    for v in range(k):
+        steps = [ev["step"] for ev in events
+                 if ev["event"] == "step" and ev.get("variant", 0) == v]
+        if steps != list(range(1, done["steps"] + 1)):
+            raise AssertionError(f"phase 8: {payload} variant {v} stepped {steps}")
+    if kinds.count("variant_done") != (k if k > 1 else 0):
+        raise AssertionError(f"phase 8: {payload}: {kinds.count('variant_done')} variant_done")
+    return done
+
+
+async def _http_phase(port: int) -> dict:
+    """Phase 8 against the live server: the digest gate, the burst, the
+    exact payload again, the keys and the drain."""
+    import asyncio
+
+    from repro_torch.serving.client import FrontendClient, RequestRejected, _read_response_head
+
+    client = FrontendClient("127.0.0.1", port)
+    out = dict(health=await client.wait_ready(P8_WAIT_S), served=[])
+
+    async def one(payload):
+        t = time.perf_counter()
+        events = [ev async for ev in client.generate_stream(**payload)]
+        return _check_stream(events, payload), time.perf_counter() - t
+
+    for payload in P8_PAYLOADS:
+        out["served"].append(await one(payload))
+
+    # the burst: A is cancelled through /cancel and B by dropping its
+    # connection, each after its first step; the other six arrive while both
+    # are open, so at most two of them fit under --max-inflight 4
+    burst = [dict(task="txt2img", prompt=f"burst {i}", seed=100 + i, timesteps=MAX_STEPS)
+             for i in range(P8_BURST)]
+    queued = [asyncio.Event(), asyncio.Event()]
+
+    async def by_cancel():
+        last, sent = None, False
+        async for ev in client.generate_stream(**burst[0]):
+            queued[0].set()
+            if ev["event"] == "step" and not sent:
+                sent = True
+                await client.cancel(ev["rid"])
+            last = ev
+        return last
+
+    async def by_drop():
+        stream = client.generate_stream(**burst[1])
+        try:
+            async for ev in stream:
+                queued[1].set()
+                if ev["event"] == "step":
+                    return ev
+        finally:
+            await stream.aclose()  # closes the connection mid-denoise
+
+    async def plain(payload):
+        try:
+            return await client.generate(**payload)
+        except RequestRejected as e:
+            if e.status != 429:
+                raise
+            return {"event": "rejected", "status": e.status}
+
+    ta, tb = asyncio.create_task(by_cancel()), asyncio.create_task(by_drop())
+    await asyncio.wait_for(asyncio.gather(queued[0].wait(), queued[1].wait()), P8_WAIT_S)
+    rest = await asyncio.gather(*(plain(p) for p in burst[2:]))
+    a, b = await ta, await tb
+    out["burst"] = dict(cancelled=a, dropped_after=b, rest=[ev["event"] for ev in rest])
+    if a["event"] != "cancelled" or a.get("where") != "lane":
+        raise AssertionError(f"phase 8: the /cancel stream ended with {a}")
+    if not any(ev["event"] == "rejected" for ev in rest):
+        raise AssertionError(f"phase 8: no 429 in the burst: {out['burst']['rest']}")
+    if any(ev["event"] not in ("done", "rejected") for ev in rest):
+        raise AssertionError(f"phase 8: the burst's streams ended with {out['burst']['rest']}")
+    deadline = time.perf_counter() + P8_WAIT_S
+    while (stats := await client.stats())["open"] and time.perf_counter() < deadline:
+        await asyncio.sleep(0.1)
+    out["stats"] = stats
+
+    out["exact_again"] = await one(P8_EXACT)
+    keys = await client.cache_keys(0)
+    out["keys"] = dict(version=keys["version"], rows=keys["rings"][0],
+                       later=(await client.cache_keys(keys["version"]))["rings"])
+    reader, writer = await client._connect()
+    try:
+        writer.write(client._head("POST", "/shutdown", b"{}"))
+        await writer.drain()
+        out["shutdown_status"], _ = await _read_response_head(reader)
+    finally:
+        writer.close()
+    return out
+
+
+def _serve_http_phase(torch, K, t0):
+    """Phase 8 -> its detail.  Raises on the first failed check; the server
+    process never outlives the phase."""
+    import ast
+    import asyncio
+    import os
+    import re
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import config as CFG
+    from repro_torch.serving.driver import group_digest, latent_digest
+    from repro_torch.serving.frontend import RequestFactory
+
+    cfg = CFG.from_args(serve.build_parser().parse_args(P8_ARGS), decode_images=False)
+    port_file = ROOT / P8_PORT_FILE
+    port_file.parent.mkdir(exist_ok=True)
+    port_file.unlink(missing_ok=True)
+    logs = ROOT / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    with open(logs / "http_server.out", "w") as so, open(logs / "http_server.err", "w") as se:
+        proc = subprocess.Popen([sys.executable, "-m", P8_SERVER, *P8_ARGS], cwd=ROOT,
+                                env=dict(os.environ, PYTHONPATH=str(SRC)), stdout=so, stderr=se)
+    try:
+        deadline = time.perf_counter() + P8_WAIT_S
+        while not port_file.exists():
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"phase 8: the server never bound a port (exit {proc.poll()})")
+            time.sleep(0.2)
+        port = int(port_file.read_text())
+        t0 = _phase(f"http server up on port {port}", t0)
+
+        # the in-process reference: the same config, weights from the same
+        # (unet, seed), the same payloads in the same order, one at a time
+        bundle = CFG.build_engine(cfg)
+        engine = bundle.engine
+        factory = RequestFactory(bundle.ucfg, bundle.dcfg, cfg, policy=bundle.policy,
+                                 default_quality=cfg.quality)
+        K.reset_launch_counts()
+        ref = []
+        for payload in P8_PAYLOADS + [P8_EXACT]:
+            reqs, gid, _ = factory.build(payload)
+            t = time.perf_counter()
+            for r in reqs:
+                engine.submit(r)
+            done = {}
+            while engine.n_pending or engine.n_active:
+                done.update((d.rid, d) for d in engine.step())
+            torch.cuda.synchronize()
+            lat = time.perf_counter() - t
+            digests = [latent_digest(done[r.rid].latent) for r in reqs]
+            ref.append((digests[0] if gid is None else group_digest(digests), digests, lat))
+        ref_launches = K.launch_counts()
+        print(f"[chip_smoke]   in-process reference launches: {ref_launches}")
+        if any(ref_launches[name] <= 0 for name in SOURCES):
+            raise AssertionError(f"phase 8: a kernel of the reference never launched: "
+                                 f"{ref_launches}")
+        del bundle, engine
+        torch.cuda.empty_cache()
+        t0 = _phase("http in-process reference", t0)
+
+        out = asyncio.run(asyncio.wait_for(_http_phase(port), 2 * P8_WAIT_S))
+        rc = proc.wait(timeout=P8_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    server_out = (logs / "http_server.out").read_text()
+    # the server zeroes its counts once its engine is built and prints them
+    # in its drained line: the launches of the HTTP path's own run
+    m = re.search(r"\[serve\] drained .*'launches': (\{[^{}]*\})", server_out)
+    launches = ast.literal_eval(m.group(1)) if m else {}
+    print(f"[chip_smoke]   server launches: {launches}")
+    if any(launches.get(name, 0) <= 0 for name in SOURCES):
+        raise AssertionError(f"phase 8: a kernel of the HTTP path never launched: "
+                             f"{server_out[-2000:]}")
+
+    rows = []
+    for payload, (done, http_s), (digest, digests, ref_s) in zip(
+        P8_PAYLOADS + [P8_EXACT], out["served"] + [out["exact_again"]], ref
+    ):
+        if done["latent_digest"] != digest or done.get("variant_digests", digests) != digests:
+            raise AssertionError(f"phase 8: {payload} served {done['latent_digest']}, "
+                                 f"in process {digest}")
+        rows.append(dict(payload=payload, digest=digest, http_s=http_s, driver_s=done["latency_s"],
+                         in_process_s=ref_s, front_end_ms=1e3 * (http_s - ref_s)))
+        print(f"[chip_smoke]   {payload['task']} {payload.get('quality', '')}: digest {digest} "
+              f"(= in process), HTTP {1e3 * http_s:.2f} ms, driver {1e3 * done['latency_s']:.2f} "
+              f"ms, in process {1e3 * ref_s:.2f} ms, front end {1e3 * (http_s - ref_s):.2f} ms")
+    if rows[0]["digest"] != rows[5]["digest"]:
+        raise AssertionError("phase 8: allow_cache false did not serve the cold digest")
+    # the first request also pays the server process's own warm-up (CUDA
+    # context, library handles, allocator, kernel loads), which this process
+    # paid in phases 3-7: the front end's cost is read over the later ones
+    def spread(key):  # (median, least, most) over requests 2..n
+        v = sorted(r[key] for r in rows[1:])
+        return v[len(v) // 2], v[0], v[-1]
+
+    for r in rows:
+        r["edge_ms"] = 1e3 * (r["http_s"] - r["driver_s"])
+        r["driver_ms"] = 1e3 * (r["driver_s"] - r["in_process_s"])
+    cost, edge, drv = spread("front_end_ms"), spread("edge_ms"), spread("driver_ms")
+    print(f"[chip_smoke]   front end's cost per request, requests 2-{len(rows)}: median "
+          f"{cost[0]:.2f} ms ({cost[1]:.2f} to {cost[2]:.2f}): HTTP edge (HTTP - driver) "
+          f"{edge[0]:.2f} ms ({edge[1]:.2f} to {edge[2]:.2f}), driver thread (driver - in "
+          f"process) {drv[0]:.2f} ms ({drv[1]:.2f} to {drv[2]:.2f}); first request "
+          f"{rows[0]['front_end_ms']:.2f} ms (with the server's warm-up)")
+    stats = out["stats"]
+    print(f"[chip_smoke]   burst of {P8_BURST}: {out['burst']['rest']} and two cancels; "
+          f"/stats accepted {stats['accepted']} completed {stats['completed']} cancelled "
+          f"{stats['cancelled']} rejected {stats['rejected']} kernels {stats['kernels']} "
+          f"step time {stats['step_time_by_backend']}")
+    if (stats["accepted"] != stats["completed"] + stats["cancelled"] or stats["cancelled"] != 2
+            or stats["rejected"] < 1 or stats["open"] or stats["kernels"] != "cuda"
+            or "cuda" not in stats["step_time_by_backend"]):
+        raise AssertionError(f"phase 8: /stats after the burst: {stats}")
+    keys = out["keys"]
+    print(f"[chip_smoke]   /cache/keys: version {keys['version']}, {len(keys['rows'])} rows since "
+          f"0, {keys['later']} since {keys['version']}; /shutdown {out['shutdown_status']}, "
+          f"server exit {rc}")
+    if (not keys["rows"] or not all(0 < r["gen"] <= keys["version"] for r in keys["rows"])
+            or keys["later"] != [[]]):
+        raise AssertionError(f"phase 8: /cache/keys: {keys}")
+    if out["shutdown_status"] != 202 or rc != 0 or "drained" not in server_out:
+        raise AssertionError(f"phase 8: shutdown {out['shutdown_status']}, exit {rc}: "
+                             f"{server_out[-2000:]}")
+    _phase("http served", t0)
+    stats = {k: v for k, v in stats.items() if k != "cache_slots_summary"}
+    return dict(requests=rows, launches=launches, reference_launches=ref_launches,
+                health=out["health"], stats=stats,
+                burst=out["burst"], keys_version=keys["version"], key_rows=len(keys["rows"]))
+
+
 def main() -> int:
     try:
         import torch
@@ -1135,6 +1412,9 @@ def main() -> int:
     detail["calibrate"] = _calibrate_phase(
         torch, np, K, CFG, config, models, pass_ms[f"FULL micro-step {batch}"]["cuda"],
         time.perf_counter())
+
+    # 8. serve over HTTP ---------------------------------------------------------------------
+    detail["serve_http"] = _serve_http_phase(torch, K, time.perf_counter())
 
     kernels = [
         _kernel_entry(name, src, rep, launches[name], totals[name])

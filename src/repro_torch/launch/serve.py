@@ -1,5 +1,6 @@
 """Serving CLI for the PyTorch port: a synthetic txt2img request stream
-through the continuous-batching engine or the static lockstep baseline.
+through the continuous-batching engine or the static lockstep baseline, or
+the continuous engine served over HTTP.
 
 Requests are built as ``repro.launch.serve`` builds them: per-request prompt
 embeddings and noise from ``np.random.default_rng(seed * 100_003 + i)``;
@@ -17,20 +18,38 @@ requests with close prompts and timesteps reuse each other's), with
 default on a GPU) or ``eager`` (plain PyTorch, the only choice with
 ``--device cpu``).
 
+``--http HOST:PORT`` serves the continuous engine over the asyncio HTTP
+frontend (``repro_torch.serving.frontend``) instead of running a synthetic
+batch: the engine runs on a driver thread, requests arrive as ``POST
+/generate`` and stream per-step progress as NDJSON, ``POST /cancel`` aborts
+mid-denoise, backpressure past ``--max-inflight`` answers 429, and
+SIGINT/SIGTERM (or ``POST /shutdown``) drain gracefully.  ``PORT 0`` binds
+an ephemeral port; ``--port-file`` publishes the bound port for scripted
+clients (``python -m repro_torch.serving.client``).  ``--quality`` is then
+the default for payloads that carry none.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --mode diffusion --unet sd_v14 \\
       --requests 4 --batch 2 --timesteps 8 --cache cross --quality draft
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --engine static --pas
+  PYTHONPATH=src python -m repro_torch.launch.serve --unet sd_v14 --batch 2 --timesteps 8 \\
+      --cache cross --http 127.0.0.1:0 --port-file build/http.port
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
+import os
+import signal
 
 import numpy as np
 
+from repro_torch import kernels as K
 from repro_torch.models import unet as U
 from repro_torch.serving import config as CFG
+from repro_torch.serving.driver import EngineDriver
 from repro_torch.serving.engine import GenRequest, serve_static
+from repro_torch.serving.frontend import HTTPFrontend, RequestFactory
 from repro_torch.serving.policy import QualityPolicy, default_pas_plan
 
 
@@ -106,7 +125,58 @@ def serve_diffusion(args) -> dict:
     )
 
 
-def main(argv=None) -> None:
+def _parse_hostport(value: str) -> tuple[str, int]:
+    host, _, port = value.rpartition(":")
+    try:
+        return host or "127.0.0.1", int(port)
+    except ValueError:
+        raise SystemExit(f"--http wants HOST:PORT (PORT 0 = ephemeral), got {value!r}")
+
+
+def serve_http(args) -> None:
+    """Run the async HTTP frontend until a graceful drain completes; exits
+    non-zero unless the drain was clean."""
+    if getattr(args, "engine", "continuous") == "static":
+        raise SystemExit(
+            "--http requires the continuous engine (the lockstep baseline has "
+            "no event loop to drive asynchronously); drop --engine static"
+        )
+    host, port = _parse_hostport(args.http)
+    cfg = CFG.from_args(args, decode_images=False)
+    bundle = CFG.build_engine(cfg)  # no GPU and no --device cpu: raises before binding
+    K.reset_launch_counts()  # the drained line reports the launches of serving alone
+    driver = EngineDriver(bundle.engine, max_inflight=cfg.max_inflight)
+    factory = RequestFactory(
+        bundle.ucfg, bundle.dcfg, cfg, policy=bundle.policy, default_quality=cfg.quality,
+    )
+
+    async def amain() -> dict:
+        driver.start()
+        frontend = HTTPFrontend(driver, factory, host, port)
+        await frontend.start()
+        print(f"[serve] http listening on {frontend.host}:{frontend.port}", flush=True)
+        if args.port_file:
+            tmp = args.port_file + ".tmp"
+            with open(tmp, "w") as f:
+                f.write(str(frontend.port))
+            os.replace(tmp, args.port_file)  # atomic: clients never see a partial write
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, frontend.request_shutdown)
+        return await frontend.serve_until_shutdown()
+
+    summary = asyncio.run(amain())
+    # the warm-slot key table stays on /stats and /cache/keys: at sd_v14 it
+    # holds 768 floats a slot
+    shown = {k: v for k, v in summary.items() if k != "cache_slots_summary"}
+    shown["launches"] = K.launch_counts()
+    print(f"[serve] drained {shown}", flush=True)
+    if not summary.get("drained", False):
+        raise SystemExit("server stopped without a clean drain")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The serving CLI's flags (``CFG.from_args`` maps them to an engine config)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["diffusion"], default="diffusion")
     ap.add_argument("--unet", default="sd_toy")
@@ -158,8 +228,29 @@ def main(argv=None) -> None:
         help="host-RAM spill ring budget in MiB (0 = off): ring evictions demote "
         "there and admission promotes matches back onto the device",
     )
+    ap.add_argument(
+        "--http", metavar="HOST:PORT", default=None,
+        help="serve the continuous engine over the asyncio HTTP frontend (PORT 0 = "
+        "ephemeral) instead of running a synthetic batch; drains on SIGINT/SIGTERM "
+        "or POST /shutdown",
+    )
+    ap.add_argument(
+        "--port-file", default=None, metavar="PATH",
+        help="write the bound HTTP port here (atomically) once listening",
+    )
+    ap.add_argument(
+        "--max-inflight", type=int, default=32,
+        help="bounded admission depth of the HTTP frontend (429 beyond it)",
+    )
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.http is not None:
+        serve_http(args)
+        return
     print(f"[serve] {serve_diffusion(args)}")
 
 

@@ -20,7 +20,10 @@ SKETCH micro-steps.
 
 Modes are disjoint reuse scopes: ``"intra"`` restricts hits to slots the
 same request inserted (DeepCache-style self reuse), ``"cross"`` to other
-requests' slots.  The mesh-sharded rings are not ported yet.
+requests' slots.  Every key write stamps its slot with a generation, so
+the HTTP layer can publish the warm keys (``slots_summary``) and their
+changes since a cursor (``keys_delta``).  The mesh-sharded rings are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -32,6 +35,13 @@ import torch
 
 from repro_torch.common.types import UNetConfig
 from repro_torch.core import sampler as SM
+
+#: slot cap on one ring's published key table (``slot_summary`` /
+#: ``key_delta``): an over-provisioned ring must not bloat every ``/stats``
+#: poll, so only the most recently used slots are reported and consumers
+#: must tolerate truncation
+MAX_SUMMARY_SLOTS = 64
+
 
 @dataclasses.dataclass
 class CacheState:
@@ -250,6 +260,11 @@ class SlotRing:
         self.offset = np.zeros((s,), np.int64)
         self.valid = np.zeros((s,), bool)
         self.last_use = np.zeros((s,), np.int64)
+        #: per-slot generation stamp (the value of ``version`` at the slot's
+        #: last key write): ``key_delta(since)`` ships only newer slots
+        self.gen = np.zeros((s,), np.int64)
+        #: generation clock: ticked by every key write (0 = cold ring)
+        self.version = 0
         self._tick = 0
         self.probes = 0
         self.probe_hits = 0
@@ -372,6 +387,8 @@ class SlotRing:
         self.rid[slot] = rid
         self.offset[slot] = offset
         self.valid[slot] = True
+        self.version += 1
+        self.gen[slot] = self.version
         self.inserts += 1
         self._touch(slot)
         return slot
@@ -385,6 +402,39 @@ class SlotRing:
             "cache_inserts": self.inserts,
             "cache_evictions": self.evictions,
         }
+
+    def _slot_row(self, s: int) -> dict:
+        return {
+            "slot": int(s),
+            "gen": int(self.gen[s]),
+            "bucket": int(self.bucket[s]),
+            "offset": int(self.offset[s]),
+            "rid": int(self.rid[s]),
+            "sig": [round(float(x), 4) for x in self.sig[s]],
+        }
+
+    def slot_summary(self) -> list[dict]:
+        """Wire keys of the warm slots (slot, generation stamp, bucket,
+        schedule offset, owner rid, prompt signature to 4 digits; never the
+        features), as ``GET /stats`` publishes them.  Past
+        :data:`MAX_SUMMARY_SLOTS` warm slots only the most recently used
+        are reported."""
+        warm = np.nonzero(self.valid)[0]
+        if warm.size > MAX_SUMMARY_SLOTS:
+            keep = warm[np.argsort(self.last_use[warm])][-MAX_SUMMARY_SLOTS:]
+            warm = np.sort(keep)
+        return [self._slot_row(int(s)) for s in warm]
+
+    def key_delta(self, since: int = 0) -> list[dict]:
+        """Warm-slot rows written after generation ``since`` (rows as in
+        :meth:`slot_summary`; a consumer merges them by slot index), capped
+        at the :data:`MAX_SUMMARY_SLOTS` newest generations."""
+        fresh = np.nonzero(self.valid & (self.gen > int(since)))[0]
+        if fresh.size > MAX_SUMMARY_SLOTS:
+            keep = fresh[np.argsort(self.gen[fresh])][-MAX_SUMMARY_SLOTS:]
+            fresh = np.sort(keep)
+        return [self._slot_row(int(s)) for s in fresh]
+
 
 class FeatureCache(SlotRing):
     """Fixed-size LRU feature cache: device slots + host keys, owned by one
@@ -490,3 +540,28 @@ class FeatureCache(SlotRing):
         if self.spill is not None:
             out.update(self.spill.stats())
         return out
+
+    def slots_summary(self) -> dict:
+        """Ring geometry and warm-slot keys, as ``GET /stats`` publishes
+        them.  A consumer that keeps ``version`` asks :meth:`keys_delta`
+        for the changes since (and treats a version that went backwards as
+        a restart)."""
+        return {
+            "mode": self.mode,
+            "threshold": self.threshold,
+            "t_bucket": self.t_bucket,
+            "version": self.version,
+            "rings": [self.slot_summary()],
+        }
+
+    def keys_delta(self, since: int = 0) -> dict:
+        """Incremental form of :meth:`slots_summary`: only slots whose key
+        generation exceeds ``since`` (the ``GET /cache/keys`` payload)."""
+        return {
+            "mode": self.mode,
+            "threshold": self.threshold,
+            "t_bucket": self.t_bucket,
+            "version": self.version,
+            "since": int(since),
+            "rings": [self.key_delta(since)],
+        }

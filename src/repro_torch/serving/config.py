@@ -9,7 +9,7 @@ Port of ``repro/serving/config.py``:
 * :func:`build_policy`: the process-wide quality resolver for an engine;
 * :func:`build_engine`: config -> :class:`EngineBundle`.
 
-Not ported yet: the sharded engine (``--shards``) and the HTTP front end.
+Not ported yet: the sharded engine (``--shards``).
 """
 from __future__ import annotations
 
@@ -67,6 +67,8 @@ def from_args(args: Any, *, decode_images: bool = True) -> EngineConfig:
         seed=getattr(args, "seed", 0),
         profile=getattr(args, "profile", None),
         window=getattr(args, "window", 4),
+        quality=getattr(args, "quality", None),
+        max_inflight=getattr(args, "max_inflight", 32),
     )
 
 

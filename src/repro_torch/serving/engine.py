@@ -16,9 +16,10 @@ planned FULL step with a warm, close-enough slot runs as SKETCH on the
 slot's features, and a planned SKETCH step whose policy allows it as
 REFINE.  :class:`StaticServer` is the fixed-size lockstep baseline.
 
-Not ported yet: the sharded engine (``n_shards > 1``, with its sharded
-cache and warm-shard routing), refused with ``ValueError``, and the HTTP
-serving layer above the engine.
+The HTTP serving layer drives the engine from its own thread
+(``repro_torch.serving.driver``).  Not ported yet: the sharded engine
+(``n_shards > 1``, with its sharded cache and warm-shard routing), refused
+with ``ValueError``.
 """
 from __future__ import annotations
 
@@ -65,6 +66,9 @@ class GenRequest:
     timesteps: int
     plan: PASPlan | None = None
     arrival_s: float = 0.0  # offset from stream start
+    #: opt-out for quality-critical requests: never serve this request's
+    #: steps from the cache (its captures may still serve other requests)
+    allow_cache: bool = True
     #: per-request quality resolution; None = the engine-global threshold
     policy: ResolvedPolicy | None = None
     #: [L, C] known latent for img2img/inpaint; None = txt2img
@@ -177,6 +181,11 @@ class EngineConfig:
     #: shift-score profile (.npz) refining the policy's thresholds per bucket
     profile: str | None = None
     window: int = 4  # PlanAwareScheduler alignment window
+    #: default quality tier for HTTP payloads that carry none (None = the
+    #: policy's own default)
+    quality: str | None = None
+    #: HTTP admission bound (driver-level, not an engine concern)
+    max_inflight: int = 32
 
     def __post_init__(self):
         if self.cache_mode not in ("off", "intra", "cross"):
@@ -203,6 +212,9 @@ class EngineConfig:
 
 
 class DiffusionEngine:
+    #: summary tag (the driver's ``/stats`` and ``/healthz`` report it)
+    _mode_name = "continuous"
+
     def __init__(
         self,
         ucfg: UNetConfig,
@@ -375,7 +387,7 @@ class DiffusionEngine:
         ring and promote a match onto the device ring, so the lane's first
         planned FULL step finds it there.  Threshold-0 steps never probe."""
         cache = self.cache
-        if cache is None or cache.spill is None:
+        if cache is None or cache.spill is None or not req.allow_cache:
             return
         lp, sig, off = req._lane_plan, req._sig, req.sched_offset
         for i in range(lp.n_steps):
@@ -413,8 +425,9 @@ class DiffusionEngine:
     def _probe_eligible(self, req: GenRequest, lane: int, planned: int) -> bool:
         """Whether a lane's next planned step may be served from the cache:
         planned FULL steps always probe; planned SKETCH steps only when the
-        request's quality policy opted into SKETCH->REFINE demotions."""
-        if self._lane_step[lane] < CACHE_MIN_STEP:
+        request's quality policy opted into SKETCH->REFINE demotions; never
+        for a request that opted out of the cache."""
+        if not req.allow_cache or self._lane_step[lane] < CACHE_MIN_STEP:
             return False
         if planned == SM.FULL:
             return True
@@ -454,8 +467,12 @@ class DiffusionEngine:
         for k, lane in enumerate(advanced):
             req = self._lane_req[lane]
             t = int(req._lane_plan.ts[self._lane_step[lane]])
-            if self._lane_step[lane] >= CACHE_MIN_STEP:
+            if req.allow_cache and self._lane_step[lane] >= CACHE_MIN_STEP:
                 self.cache.note_miss()  # probed FULL executed as FULL
+            if self.config.cache_mode == "intra" and not req.allow_cache:
+                # only this request could consume the capture, and it opted
+                # out: evict no useful slot for it
+                continue
             slot = self.cache.reserve(
                 t, req._sig, req.rid, exclude=taken, offset=req.sched_offset
             )
@@ -593,7 +610,7 @@ class DiffusionEngine:
         self.metrics.wall_s = time.perf_counter() - t0
         summary = dict(
             self.metrics.summary(),
-            mode="continuous",
+            mode=self._mode_name,
             lanes=self.config.n_lanes,
             kernels=self.config.kernels,
             device=str(self.device),

@@ -25,7 +25,7 @@ from repro_torch.serving import scheduler as TS
 TOY = get_unet_config("sd_toy")
 N_UP = JU.n_up_steps(TOY)
 E_SK, E_RF = N_UP - 3, N_UP - 2
-META = ("bucket", "rid", "sig", "valid", "last_use", "offset")
+META = ("bucket", "rid", "sig", "valid", "last_use", "offset", "gen")
 
 
 def _pair(**kw):
@@ -47,6 +47,11 @@ def _assert_same(j, t):
     assert t.counters() == j.counters()
     assert t.stats() == j.stats()
     assert t.n_warm == j.n_warm
+    # the published keys (GET /stats and GET /cache/keys)
+    assert t.version == j.version
+    assert t.slots_summary() == j.slots_summary()
+    for since in (0, max(0, j.version - 1), j.version):
+        assert t.keys_delta(since) == j.keys_delta(since)
     np.testing.assert_array_equal(t.state.f_sk.numpy(), np.asarray(j.state.f_sk))
     np.testing.assert_array_equal(t.state.f_rf.numpy(), np.asarray(j.state.f_rf))
 
@@ -123,6 +128,22 @@ def test_cache_sequence_matches_jax(mode, spill_mb):
     j.reset()
     t.reset()
     _assert_same(j, t)
+
+
+def test_published_keys_are_capped_as_in_jax():
+    """Past MAX_SUMMARY_SLOTS warm slots the key table keeps the most
+    recently used (summary) or the newest generations (delta)."""
+    j, t = (R(70, TOY.ctx_dim, t_bucket=100) for R in (JC.SlotRing, TC.SlotRing))
+    for i in range(80):  # fills the ring, then evicts and refreshes
+        for ring in (j, t):
+            ring.reserve(100 * (i % 9), _sig(i % 75), i % 75, offset=i % 2)
+    t.note_hit(3)
+    j.note_hit(3)
+    assert TC.MAX_SUMMARY_SLOTS == JC.MAX_SUMMARY_SLOTS == 64
+    assert len(t.slot_summary()) == 64 and t.slot_summary() == j.slot_summary()
+    for since in (0, 20, 79, 80):
+        assert t.key_delta(since) == j.key_delta(since)
+    assert t.version == j.version == 80 and t.key_delta(80) == []
 
 
 def test_plan_warmth_matches_jax():
