@@ -73,7 +73,20 @@ version.  Phases:
    connection) and ``/stats`` after it; the ``exact`` payload again;
    ``/cache/keys`` since 0 and since its version; ``POST /shutdown`` and a
    clean exit; each request's HTTP, driver and in-process latency, and the
-   front end's cost per request.
+   front end's cost per request;
+9. serve through the router: ``python -m repro_torch.launch.router`` with
+   two replicas of phase 8's server on this card (one process group,
+   killed in a ``finally``; the compute mode must let two processes share
+   the card); each replica's time to serve and card memory; phase 8's
+   ``exact`` payload alone, its replica SIGKILLed after the second step
+   event: the stream shows ``requeued`` and restarts once on the survivor,
+   and its digest is bitwise phase 8's in-process one, as is the cold
+   replay of the first payload; the respawn; 8 of phase 8's payloads from
+   4 clients with the busier replica SIGKILLed while every client has a
+   stream open (every request ``done``, the victim respawned); a pair of
+   new prompts that lands on both replicas; ``POST /shutdown`` (exit 0,
+   drained) and each drained replica generation's own launch counts
+   (uniconv, group norm and flash attention above 0).
 
 Run from the repository root: ``python3 chip_smoke.py``.  It prints the
 per-kernel JSON line, the card line and, last, the ``{"ok": true, ...}``
@@ -196,11 +209,11 @@ SCORE_TOL, PROFILE_TOL, COSINE_TOL, FACTOR_TOL = 1e-4, 1e-3, 1e-5, 2.0**-23
 #: ``CFG.from_args``, give the in-process reference engine its config
 P8_SERVER = "repro_torch.launch.serve"
 P8_PORT_FILE = "build/http.port"
-P8_ARGS = [
+P8_ENGINE = [
     "--unet", UNET, "--batch", str(N_LANES), "--timesteps", str(MAX_STEPS), "--cache", "cross",
-    "--kernels", "cuda", "--http", "127.0.0.1:0", "--port-file", P8_PORT_FILE,
-    "--max-inflight", "4",
+    "--kernels", "cuda", "--max-inflight", "4",
 ]
+P8_ARGS = [*P8_ENGINE, "--http", "127.0.0.1:0", "--port-file", P8_PORT_FILE]
 #: phase 8's digest gate, served one at a time; the last is the first again,
 #: opted out of the cache (cold as the first was, so the same digest)
 P8_BALANCED = dict(task="txt2img", prompt="a lighthouse at dusk", seed=1, timesteps=MAX_STEPS,
@@ -221,6 +234,16 @@ P8_PAYLOADS = [
 P8_BURST = 8
 #: phase 8's bound on each wait for the server (start-up, a stream, the drain)
 P8_WAIT_S = 300
+#: phase 9: two replicas of phase 8's server behind the router, all on this
+#: card; the run dir (replica port files and logs) comes back with the call
+P9_ROUTER = "repro_torch.launch.router"
+P9_PORT_FILE = "build/router.port"
+P9_RUN_DIR = "chiprun_out/router"
+P9_REPLICAS = 2
+P9_ARGS = ["--replicas", str(P9_REPLICAS), *P8_ENGINE, "--http", "127.0.0.1:0",
+           "--port-file", P9_PORT_FILE, "--run-dir", P9_RUN_DIR]
+#: phase 9's kill under load: this many of phase 8's payloads from this many clients
+P9_LOAD, P9_CLIENTS = 8, 4
 
 
 def _phase(name: str, t0: float) -> float:
@@ -919,23 +942,39 @@ def _calibrate_phase(torch, np, K, CFG, config, models, full_pass_ms, t0):
     return detail
 
 
-def _check_stream(events: list[dict], payload: dict) -> dict:
+def _check_stream(events: list[dict], payload: dict, where: str = "phase 8") -> dict:
     """The event protocol of one stream: ``queued`` first, then per member
     the step events k = 1..n in order, exactly one terminal event, last;
     it must be ``done``.  Returns the terminal event."""
     kinds = [ev["event"] for ev in events]
     terminal = [k for k in kinds if k in ("done", "cancelled", "error")]
-    if kinds[0] != "queued" or terminal != ["done"] or kinds[-1] != "done":
-        raise AssertionError(f"phase 8: {payload} streamed {kinds}")
+    if not kinds or kinds[0] != "queued" or terminal != ["done"] or kinds[-1] != "done":
+        raise AssertionError(f"{where}: {payload} streamed {kinds}")
     done, k = events[-1], payload.get("variants", 1)
     for v in range(k):
         steps = [ev["step"] for ev in events
                  if ev["event"] == "step" and ev.get("variant", 0) == v]
         if steps != list(range(1, done["steps"] + 1)):
-            raise AssertionError(f"phase 8: {payload} variant {v} stepped {steps}")
+            raise AssertionError(f"{where}: {payload} variant {v} stepped {steps}")
     if kinds.count("variant_done") != (k if k > 1 else 0):
-        raise AssertionError(f"phase 8: {payload}: {kinds.count('variant_done')} variant_done")
+        raise AssertionError(f"{where}: {payload}: {kinds.count('variant_done')} variant_done")
     return done
+
+
+def _check_failover(events: list[dict], payload: dict) -> dict:
+    """A stream whose replica died once after its second step: ``queued``
+    and steps 1..k (k >= 2) from the first replica, exactly one
+    ``requeued``, then a whole stream from the survivor (``queued``, steps
+    from 1 again, ``done``).  Returns the terminal event."""
+    kinds = [ev["event"] for ev in events]
+    if kinds.count("requeued") != 1:
+        raise AssertionError(f"phase 9: {payload} streamed {kinds}")
+    cut = kinds.index("requeued")
+    steps = [ev["step"] for ev in events[:cut] if ev["event"] == "step"]
+    if kinds[0] != "queued" or kinds[1:cut] != ["step"] * len(steps) or len(steps) < 2 or (
+            steps != list(range(1, len(steps) + 1))):
+        raise AssertionError(f"phase 9: {payload} streamed {kinds} before its requeue")
+    return _check_stream(events[cut + 1:], payload, "phase 9, after the requeue")
 
 
 async def _http_phase(port: int) -> dict:
@@ -1151,6 +1190,227 @@ def _serve_http_phase(torch, K, t0):
     return dict(requests=rows, launches=launches, reference_launches=ref_launches,
                 health=out["health"], stats=stats,
                 burst=out["burst"], keys_version=keys["version"], key_rows=len(keys["rows"]))
+
+
+async def _router_phase(port: int, pids: dict, t_start: float, free_bytes) -> dict:
+    """Phase 9 against the live router: the failover of a lone request,
+    the cold replay, the respawn, the kill under load, a pair that lands on
+    both replicas, the drain.  ``free_bytes()`` reads the card's free
+    memory just before the drain."""
+    import asyncio
+    import os
+    import signal
+
+    from repro_torch.serving.client import FrontendClient, run_load
+
+    client = FrontendClient("127.0.0.1", port)
+    out: dict = {}
+
+    async def wait_fleet(respawns: int) -> tuple[dict, float]:
+        """/stats once both replicas serve again after ``respawns`` respawns."""
+        deadline = time.perf_counter() + P8_WAIT_S
+        while True:
+            stats = await client.stats()
+            r = stats["router"]
+            if r["ready"] == P9_REPLICAS and r["respawns"] >= respawns:
+                return stats, time.perf_counter()
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 9: the fleet never healed: {r}")
+            await asyncio.sleep(0.2)
+
+    # the lone request, its replica killed after its second step
+    events, t = [], {}
+    t["sent"] = time.perf_counter()
+    async for ev in client.generate_stream(**P8_EXACT):
+        events.append(ev)
+        if ev["event"] == "step" and ev["step"] == 2 and "kill" not in t:
+            victim = events[0]["replica"]
+            os.kill(pids[victim], signal.SIGKILL)
+            t["kill"] = time.perf_counter()
+        elif ev["event"] == "requeued":
+            t["requeued"] = time.perf_counter()
+    t["done"] = time.perf_counter()
+    out["failover"] = dict(done=_check_failover(events, P8_EXACT), victim=victim,
+                           kinds=[ev["event"] for ev in events],
+                           kill_to_requeued_s=t["requeued"] - t["kill"],
+                           kill_to_done_s=t["done"] - t["kill"], request_s=t["done"] - t["sent"])
+    out["replay"] = _check_stream(
+        [ev async for ev in client.generate_stream(**dict(P8_BALANCED, allow_cache=False))],
+        P8_BALANCED, "phase 9, the replay")
+    out["healed"], t_ready = await wait_fleet(1)
+    out["failover"]["kill_to_ready_s"] = t_ready - t["kill"]
+
+    # the kill under load: the replica with more open streams dies while
+    # every client has one open
+    pids = {e["idx"]: e["pid"] for e in out["healed"]["replicas"]}
+    load = asyncio.create_task(run_load(
+        client, requests=P9_LOAD, concurrency=P9_CLIENTS,
+        payloads=[P8_PAYLOADS[i % len(P8_PAYLOADS)] for i in range(P9_LOAD)]))
+    deadline = time.perf_counter() + P8_WAIT_S
+    while True:
+        reps = (await client.stats())["replicas"]
+        if sum(e["inflight_routed"] > 0 for e in reps) == P9_REPLICAS or load.done():
+            break
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"phase 9: the load never reached both replicas: {reps}")
+        await asyncio.sleep(0.05)
+    await asyncio.sleep(0.5)  # into the denoise
+    busiest = max(reps, key=lambda e: e["inflight_routed"])
+    killed_open = not load.done()
+    os.kill(pids[busiest["idx"]], signal.SIGKILL)
+    t_kill = time.perf_counter()
+    stats = await asyncio.wait_for(load, 2 * P8_WAIT_S)
+    out["load"] = dict(stats.summary(), victim=busiest["idx"], killed_open=killed_open,
+                       victim_inflight=busiest["inflight_routed"])
+    out["reheal"], t_ready = await wait_fleet(2)
+    out["load"]["kill_to_ready_s"] = t_ready - t_kill
+
+    # a pair of new prompts (cold on both replicas, so least-loaded picks):
+    # the second is admitted while the first is open, so it lands on the
+    # other replica and every generation that drains has served
+    pair = [dict(P8_EXACT, prompt=f"a pair {i}") for i in range(2)]
+    first = client.generate_stream(**pair[0])
+    head = [await first.__anext__()]
+    second = [ev async for ev in client.generate_stream(**pair[1])]
+    head += [ev async for ev in first]
+    out["pair"] = [dict(_check_stream(evs, p, "phase 9, the pair"), replica=evs[0]["replica"])
+                   for evs, p in zip((head, second), pair)]
+    out["final"] = await client.stats()
+    out["free_served"] = free_bytes()
+    await client.shutdown()
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def _router_phase_run(torch, p8_rows, t0):
+    """Phase 9 -> its detail.  Raises on the first failed check; neither the
+    router nor any replica outlives the phase (one process group)."""
+    import ast
+    import asyncio
+    import contextlib
+    import os
+    import re
+    import shutil
+    import signal
+
+    t_start = t0
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"[chip_smoke]   compute mode: {mode}")
+    if mode in ("Exclusive_Process", "Prohibited"):
+        raise AssertionError(f"phase 9: compute mode {mode}: {P9_REPLICAS} replica processes "
+                             "cannot share the card")
+    port_file, run_dir = ROOT / P9_PORT_FILE, ROOT / P9_RUN_DIR
+    port_file.parent.mkdir(exist_ok=True)
+    port_file.unlink(missing_ok=True)
+    shutil.rmtree(run_dir, ignore_errors=True)  # replica logs are appended to
+    run_dir.mkdir(parents=True)
+    # the card's free memory before the fleet, with it up and after it
+    # served: the replicas' own memory (nvidia-smi lists no pids it can map
+    # to processes in a container)
+    free = [torch.cuda.mem_get_info()[0]]
+    t_wall = time.time()  # the replicas' port files are stamped on this clock
+    with open(run_dir / "router.out", "w") as so, open(run_dir / "router.err", "w") as se:
+        proc = subprocess.Popen([sys.executable, "-m", P9_ROUTER, *P9_ARGS], cwd=ROOT,
+                                env=dict(os.environ, PYTHONPATH=str(SRC)), stdout=so,
+                                stderr=se, start_new_session=True)
+    try:
+        deadline = time.perf_counter() + P8_WAIT_S
+        while not port_file.exists():
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"phase 9: the router never bound a port (exit "
+                                     f"{proc.poll()}): {(run_dir / 'router.err').read_text()[-3000:]}")
+            time.sleep(0.1)
+        port = int(port_file.read_text())
+        # each replica's first generation publishes its port once it serves
+        ready_s = {i: (run_dir / f"replica{i}.gen1.port").stat().st_mtime - t_wall
+                   for i in range(P9_REPLICAS)}
+        from repro_torch.serving.client import FrontendClient
+
+        stats = asyncio.run(FrontendClient("127.0.0.1", port).stats())
+        if stats["router"]["ready"] != P9_REPLICAS:
+            raise AssertionError(f"phase 9: {stats['router']}")
+        pids = {e["idx"]: e["pid"] for e in stats["replicas"]}
+        free.append(torch.cuda.mem_get_info()[0])
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip().splitlines()
+        mem = {int(a.split(",")[0]): a.split(",")[1].strip() for a in apps if "," in a}
+        for i in range(P9_REPLICAS):
+            print(f"[chip_smoke]   replica {i} (pid {pids[i]}) serving {ready_s[i]:.2f} s "
+                  f"after the router started; nvidia-smi memory {mem.get(pids[i], 'not listed')}")
+        print(f"[chip_smoke]   nvidia-smi compute apps: {apps}; card memory the fleet took "
+              f"(mem_get_info): {(free[0] - free[1]) / 2**30:.2f} GiB for {P9_REPLICAS} replicas")
+        t0 = _phase(f"router up on port {port}", t0)
+        out = asyncio.run(asyncio.wait_for(
+            _router_phase(port, pids, t_start, lambda: torch.cuda.mem_get_info()[0]),
+            4 * P8_WAIT_S))
+        rc = proc.wait(timeout=P8_WAIT_S)
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)  # the router and every replica it started
+        proc.wait(timeout=60)
+
+    digests = {name: p8_rows[i]["digest"] for i, name in ((0, "balanced"), (4, "exact"))}
+    fo = out["failover"]
+    print(f"[chip_smoke]   failover of {fo['kinds'].count('step')} step events: replica "
+          f"{fo['victim']} killed after step 2; kill to requeued {1e3 * fo['kill_to_requeued_s']:.1f}"
+          f" ms, to done {1e3 * fo['kill_to_done_s']:.1f} ms, to the fleet ready again "
+          f"{fo['kill_to_ready_s']:.2f} s; request {1e3 * fo['request_s']:.1f} ms")
+    if fo["done"]["latent_digest"] != digests["exact"]:
+        raise AssertionError(f"phase 9: the failed-over exact request served "
+                             f"{fo['done']['latent_digest']}, in process {digests['exact']}")
+    if out["replay"]["latent_digest"] != digests["balanced"]:
+        raise AssertionError(f"phase 9: the cold replay served {out['replay']['latent_digest']}, "
+                             f"in process {digests['balanced']}")
+    healed = out["healed"]["router"]
+    print(f"[chip_smoke]   digests: failed-over exact and cold replay = phase 8's in process; "
+          f"healed fleet {healed}")
+    if healed["evictions"] < 1 or healed["respawns"] < 1 or healed["failed"]:
+        raise AssertionError(f"phase 9: after the failover: {healed}")
+    load = out["load"]
+    ratio = load["completed"] / load["submitted"]
+    print(f"[chip_smoke]   kill under load ({P9_LOAD} requests, {P9_CLIENTS} clients): replica "
+          f"{load['victim']} killed with routed weight {load['victim_inflight']} open (a "
+          f"variation group weighs K); completion ratio "
+          f"{ratio:.3f} ({load['completed']} done, {load['failed']} failed, {load['rejected']} "
+          f"429s retried); respawned, ready {load['kill_to_ready_s']:.2f} s after the kill; "
+          f"wall {load['wall_s']:.2f} s")
+    if ratio != 1.0 or load["failed"] or not load["killed_open"]:
+        raise AssertionError(f"phase 9: kill under load: {load}")
+    pair = out["pair"]
+    fleet_gib = [(free[0] - free[1]) / 2**30, (free[0] - out["free_served"]) / 2**30]
+    print(f"[chip_smoke]   pair on replicas {[p['replica'] for p in pair]}; card memory of the "
+          f"fleet {fleet_gib[0]:.2f} GiB when it came up, {fleet_gib[1]:.2f} GiB after serving "
+          f"(mean a replica {fleet_gib[1] / P9_REPLICAS:.2f} GiB)")
+    if {p["replica"] for p in pair} != set(range(P9_REPLICAS)):
+        raise AssertionError(f"phase 9: the pair: {pair}")
+    final = out["final"]["router"]
+    if final["failed"] or final["respawns"] < 2 or final["resubmitted"] < 2:
+        raise AssertionError(f"phase 9: final router counters {final}")
+    router_out = (run_dir / "router.out").read_text()
+    print(f"[chip_smoke]   router exit {rc}; final counters {final}")
+    if rc != 0 or "'drained': True" not in router_out:
+        raise AssertionError(f"phase 9: router exit {rc}: {router_out[-3000:]}")
+    # every generation that drained prints its own launch counts
+    launches = {}
+    for i in range(P9_REPLICAS):
+        text = (run_dir / f"replica{i}.log").read_text()
+        launches[i] = [ast.literal_eval(m) for m in
+                       re.findall(r"\[serve\] drained .*'launches': (\{[^{}]*\})", text)]
+        print(f"[chip_smoke]   replica {i}: {len(launches[i])} drained generation(s), launches "
+              f"{launches[i]}")
+        if len(launches[i]) != 1 or any(c[name] <= 0 for c in launches[i] for name in SOURCES):
+            raise AssertionError(f"phase 9: replica {i}'s drained launches {launches[i]}: "
+                                 f"{text[-2000:]}")
+    _phase(f"router served (phase 9 wall {out['wall_s']:.1f} s)", t0)
+    return dict(compute_mode=mode, ready_s=ready_s, nvidia_smi_apps=apps, fleet_gib=fleet_gib,
+                launches=launches,
+                failover={k: v for k, v in fo.items() if k != "done"}, load=load, pair=pair,
+                healed=healed, final=final, wall_s=out["wall_s"])
 
 
 def main() -> int:
@@ -1415,6 +1675,10 @@ def main() -> int:
 
     # 8. serve over HTTP ---------------------------------------------------------------------
     detail["serve_http"] = _serve_http_phase(torch, K, time.perf_counter())
+
+    # 9. serve through the router ---------------------------------------------------------------
+    detail["router"] = _router_phase_run(torch, detail["serve_http"]["requests"],
+                                         time.perf_counter())
 
     kernels = [
         _kernel_entry(name, src, rep, launches[name], totals[name])

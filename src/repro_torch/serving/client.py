@@ -1,7 +1,7 @@
 """Async HTTP client + load generator for the serving frontend.
 
 Port of ``repro/serving/client.py`` (stdlib and numpy only, like the
-reference); the replica-router checks of its CLI come with the router.
+reference).
 
 :class:`FrontendClient` speaks the frontend's minimal HTTP/1.1 dialect
 (one request per connection, chunked NDJSON for streams) over raw asyncio
@@ -20,7 +20,9 @@ As a module it is the smoke driver of a live server::
 
 exits non-zero unless every non-cancelled request completes (and every
 requested cancellation lands), and ``--shutdown`` drains the server so the
-launcher's exit code witnesses a clean drain.
+launcher's exit code witnesses a clean drain.  With ``--router`` the
+endpoint is a replica router (``repro_torch.launch.router``): the CLI also
+requires its ``/stats`` sections and prints the per-replica summary.
 """
 from __future__ import annotations
 
@@ -457,6 +459,46 @@ def _resolve_port(args) -> int:
             time.sleep(0.2)
 
 
+async def _check_router(client: FrontendClient) -> bool:
+    """The ``--router`` checks: the endpoint's ``/stats`` carries the
+    router's sections, its fleet keeps the per-tier cache counters every
+    replica publishes, and at least one replica is ready."""
+    rstats = await client.stats()
+    rblock = rstats.get("router")
+    if not rblock:
+        print(
+            "[client] FAIL: --router but /stats carries no 'router' section "
+            "(is the endpoint a plain server?)",
+            file=sys.stderr,
+        )
+        return False
+    print(f"[client] router: {rblock}")
+    for rep in rstats.get("replicas", ()):
+        line = {k: rep.get(k) for k in (
+            "idx", "state", "generation", "respawns", "evictions", "inflight_routed",
+        )}
+        line["completed"] = (rep.get("stats") or {}).get("completed")
+        print(f"[client] replica: {line}")
+    ok = True
+    fleet = rstats.get("fleet")
+    if fleet:
+        print(f"[client] fleet: {fleet}")
+        # per-tier cache attribution must survive fleet aggregation: replicas
+        # always publish these, so their absence means the router dropped them
+        missing = [k for k in ("hbm_hits", "spill_promotions") if k not in fleet]
+        if missing:
+            print(
+                f"[client] FAIL: fleet stats missing per-tier cache counters {missing}",
+                file=sys.stderr,
+            )
+            ok = False
+    if "gossip_routed" not in rblock:
+        print("[client] FAIL: the router section has no gossip_routed counter",
+              file=sys.stderr)
+        ok = False
+    return ok and rblock.get("ready", 0) >= 1
+
+
 async def _amain(args) -> int:
     client = FrontendClient(args.host, _resolve_port(args))
     health = await client.wait_ready(args.port_timeout)
@@ -478,6 +520,7 @@ async def _amain(args) -> int:
     )
     summary = stats.summary()
     print(f"[client] {summary}")
+    router_ok = await _check_router(client) if args.router else True
     if args.json:
         with open(args.json, "w") as f:
             json.dump(summary, f, indent=2, sort_keys=True)
@@ -488,6 +531,7 @@ async def _amain(args) -> int:
         stats.completed == args.requests - args.cancel
         and stats.cancelled == args.cancel
         and stats.failed == 0
+        and router_ok
     )
     if not ok:
         print(
@@ -543,6 +587,11 @@ def main() -> None:
     ap.add_argument(
         "--cancel", type=int, default=0,
         help="cancel this many requests mid-denoise (after their first step)",
+    )
+    ap.add_argument(
+        "--router", action="store_true",
+        help="the endpoint is a replica router (repro_torch.launch.router): assert "
+        "the router /stats sections exist and print the per-replica summary",
     )
     ap.add_argument(
         "--shutdown", action="store_true",

@@ -1,6 +1,7 @@
 """repro_torch stands alone: it imports neither JAX nor the repro package,
 and neither do the port's examples (``examples/torch_*.py``) nor its chip
-smoke test (``chip_smoke.py``), whose HTTP server subprocess runs the port."""
+smoke test (``chip_smoke.py``), whose HTTP server and router subprocesses
+run the port, and the router's replicas are the port's server."""
 import pathlib
 import re
 import subprocess
@@ -14,7 +15,7 @@ EXAMPLES = sorted((SRC.parent / "examples").glob("torch_*.py"))
 CHIP_SMOKE = SRC.parent / "chip_smoke.py"
 #: test ids are file names; a later module that shares its name with an
 #: older one is named with its package, so the older one keeps its id
-QUALIFIED = {PKG / "core" / "metrics.py"}
+QUALIFIED = {PKG / "core" / "metrics.py", PKG / "launch" / "router.py"}
 MODULES = sorted(
     ".".join(p.relative_to(SRC).with_suffix("").parts).removesuffix(".__init__")
     for p in PKG.rglob("*.py")
@@ -51,9 +52,10 @@ def test_chip_smoke_starts_only_the_port():
     """Every module chip_smoke.py runs with ``python -m`` is the port's, and
     importing the script (not running it) loads no JAX and no repro."""
     text = CHIP_SMOKE.read_text()
-    modules = re.findall(r'^P8_SERVER = "([\w.]+)"', text, re.M)
-    assert modules == ["repro_torch.launch.serve"]
-    assert re.findall(r'"-m", ([\w.]+)', text) == ["P8_SERVER"]
+    modules = re.findall(r'^(P8_SERVER|P9_ROUTER) = "([\w.]+)"', text, re.M)
+    assert modules == [("P8_SERVER", "repro_torch.launch.serve"),
+                       ("P9_ROUTER", "repro_torch.launch.router")]
+    assert re.findall(r'"-m", ([\w.]+)', text) == ["P8_SERVER", "P9_ROUTER"]
     code = (
         "import importlib.util, sys\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(CHIP_SMOKE)!r})\n"
@@ -64,3 +66,15 @@ def test_chip_smoke_starts_only_the_port():
     out = subprocess.run([sys.executable, "-c", code], env={"PATH": ""},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_router_replicas_run_the_port_server():
+    """The router spawns ``-m repro_torch.launch.serve`` replicas, whatever
+    engine flags it forwards, and never a module of ``repro``."""
+    from repro_torch.launch import router
+
+    for argv in ([], ["--device", "cpu", "--kernels", "eager", "--pas", "--quality", "draft",
+                      "--profile", "p.npz", "--cache", "cross"]):
+        cmd = router.replica_command(router.build_parser().parse_args(argv))
+        assert cmd[:3] == [sys.executable, "-m", "repro_torch.launch.serve"]
+        assert not [a for a in cmd if a == "repro" or a.startswith("repro.")], cmd
