@@ -86,7 +86,22 @@ version.  Phases:
    stream open (every request ``done``, the victim respawned); a pair of
    new prompts that lands on both replicas; ``POST /shutdown`` (exit 0,
    drained) and each drained replica generation's own launch counts
-   (uniconv, group norm and flash attention above 0).
+   (uniconv, group norm and flash attention above 0);
+10. the sharded engine: ``ShardedDiffusionEngine`` with its shards on
+   ``cuda:0`` and ``cuda:1``, or both on ``cuda:0`` where one card is
+   visible.  One shard serves phase 5's stream bitwise equal to the
+   single-device engine; two shards of 2 lanes serve phase 6's stream on a
+   ``cross`` engine (a 3-slot ring a shard, one shared spill ring,
+   ``cache_gossip``), ``cuda`` (launches counted) then ``eager``: latents
+   and images held against each other, host counters equal, at least one
+   admission redirected to a warm shard, one spill promotion onto another
+   shard than the one that demoted it and one step whose shard votes
+   differ; the txt2img part at threshold 0 with the spill on against the
+   cache off, bitwise on ``cuda``; every per-shard kernel shape phase 3
+   did not log held against its plain version and timed; ``python -m
+   repro_torch.launch.serve --shards 2`` refused with ``repro``'s message
+   on one card (or serving 3 requests on two); the sharded micro-step by
+   vote pair beside phase 6's single-device steps.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It prints the
 per-kernel JSON line, the card line and, last, the ``{"ok": true, ...}``
@@ -244,6 +259,18 @@ P9_ARGS = ["--replicas", str(P9_REPLICAS), *P8_ENGINE, "--http", "127.0.0.1:0",
            "--port-file", P9_PORT_FILE, "--run-dir", P9_RUN_DIR]
 #: phase 9's kill under load: this many of phase 8's payloads from this many clients
 P9_LOAD, P9_CLIENTS = 8, 4
+#: phase 10: two lane shards (on cards 0 and 1 where there are two, both on
+#: card 0 where there is one) of 2 lanes each, a 3-slot ring a shard with
+#: one bucket a step, over one spill ring of P10_SPILL_SLOTS slots' bytes:
+#: phase 6's stream then redirects admissions to a warm shard, promotes a
+#: capture demoted off one shard onto the other, and splits the shards' votes
+P10_SHARDS, P10_LANES = 2, 4
+P10_CACHE = P6_CACHE
+P10_SPILL_SLOTS = 6
+#: phase 10's host counters, equal across the two backends
+P10_COUNTERS = P6_COUNTERS + ("gossip_routed", "shard_mean_active", "shard_hit_rates")
+#: the vote pairs phase 10 times, by class (0 FULL, 1 SKETCH, 2 REFINE)
+P10_PAIRS = ((0, 0), (0, 1), (1, 1), (0, 2), (1, 2), (2, 2))
 
 
 def _phase(name: str, t0: float) -> float:
@@ -576,6 +603,64 @@ def phase6_stream(np, ucfg, n_up, policy, GenRequest, default_pas_plan, steps=MA
         add(q, ctx=twin, plan=pol.plan, policy=pol)
     add("twin", ctx=twin, noise=twin_noise)
     return out
+
+
+def phase10_config(base, slot_bytes: int):
+    """Phase 10's cached engine config from the plain one (either package's
+    ``EngineConfig``); ``slot_bytes`` is one slot's float32 bytes."""
+    return dataclasses.replace(
+        base, n_lanes=P10_LANES, n_shards=P10_SHARDS, cache_gossip=True,
+        cache_spill_mb=P10_SPILL_SLOTS * slot_bytes / 2**20 * 1.001, **P10_CACHE)
+
+
+def track_sharded(engine) -> dict:
+    """Count, on a two-shard engine of either package, what phase 10
+    requires of its stream: ``split`` steps whose two shard votes differ
+    (both shards active), and spill ``promotions`` with ``cross`` those of a
+    capture that another shard's ring demoted.  Wraps the engine's
+    ``step``, its scheduler's ``pick_branch``, each ring's eviction hook and
+    the cache's ``promote``; returns the live counts."""
+    counts = dict(split=0, promotions=0, cross=0)
+    votes: list[int] = []
+    pick, step, cache = engine.scheduler.pick_branch, engine.step, engine.cache
+
+    def picking(classes, stalls):
+        votes.append(int(pick(classes, stalls)))
+        return votes[-1]
+
+    def stepping(*args, **kw):
+        votes.clear()
+        out = step(*args, **kw)
+        counts["split"] += len(votes) == 2 and votes[0] != votes[1]
+        return out
+
+    engine.scheduler.pick_branch, engine.step = picking, stepping
+    demoted_by: dict[tuple, int] = {}
+
+    def key(ring, slot):
+        return int(ring.rid[slot]), int(ring.bucket[slot]), int(ring.offset[slot])
+
+    for d, ring in enumerate(cache.rings):
+        if ring.on_evict is None:  # no spill ring
+            continue
+
+        def on_evict(slot, d=d, ring=ring, hook=ring.on_evict):
+            if ring.valid[slot]:
+                demoted_by[key(ring, slot)] = d
+            hook(slot)
+
+        ring.on_evict = on_evict
+    promote = cache.promote
+
+    def promoting(shard, *args, **kw):
+        slot = promote(shard, *args, **kw)
+        if slot is not None:
+            counts["promotions"] += 1
+            counts["cross"] += demoted_by.get(key(cache.rings[shard], slot), shard) != shard
+        return slot
+
+    cache.promote = promoting
+    return counts
 
 
 def _serve_cached_phase(torch, np, K, CFG, config, models, t0):
@@ -1413,6 +1498,261 @@ def _router_phase_run(torch, p8_rows, t0):
                 healed=healed, final=final, wall_s=out["wall_s"])
 
 
+def _other_card_check(torch, K) -> dict[str, float]:
+    """Every kernel of ``KERNEL_REGISTRY`` on operands on ``cuda:1``, called
+    while ``cuda:0`` is the current device, against its plain version:
+    each wrapper must launch on its operands' card.  -> max |kernel -
+    plain| by kernel; raises past the kernel's tolerance."""
+    dev = torch.device("cuda", 1)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    cases = {
+        "uniconv": ((r(2, 256, 64), r(9, 64, 128) / 24, r(128), (16, 16), 3), {}),
+        "stream_group_norm": ((r(2, 256, 64), r(64), r(64)), dict(groups=32, silu=True)),
+        "flash_attention": ((r(2, 4, 77, 40), r(2, 4, 77, 40), r(2, 4, 77, 40)),
+                            dict(causal=False)),
+        "stream_norm": ((r(64, 320), r(320), r(320)), {}),
+        "fused_matmul": ((r(128, 320), r(320, 256) / 18, r(256)), dict(epilogue="gelu")),
+    }
+    errs = {}
+    with torch.no_grad(), torch.cuda.device(0):
+        for name, (args, kw) in cases.items():
+            kern, plain = K.KERNEL_REGISTRY[name]
+            got, ref = kern(*args, **kw), plain(*args, **kw)
+            if name == "fused_matmul":
+                got, ref = got[0], ref[0]
+            torch.cuda.synchronize(dev)
+            errs[name] = float((got - ref).abs().max())
+            tol = {**TOL, **REG_TOL}[name] * max(1.0, float(ref.abs().max()))
+            if not (got.device == dev and errs[name] <= tol):
+                raise AssertionError(f"phase 10: {name} on cuda:1 from cuda:0's context: "
+                                     f"{got.device}, max |kernel - plain| {errs[name]} > {tol}")
+    return errs
+
+
+def _sharded_phase(torch, np, K, CFG, config, models, phase5, log, check_shape, single_ms,
+                   t0):
+    """Phase 10 -> its detail.  Raises on the first failed check.
+
+    ``phase5`` is (its request builder, its ``cuda`` results by rid),
+    ``log`` phase 3's shape log, ``check_shape(key)`` phase 3's kernel
+    check at one shape and ``single_ms`` phase 6's micro-step times by
+    class."""
+    import os
+
+    from repro_torch.core import sampler as SM
+    from repro_torch.models import unet as U
+    from repro_torch.models import vae as V
+    from repro_torch.models.backend import CUDA, KernelBackend
+    from repro_torch.serving.engine import GenRequest, ShardedDiffusionEngine
+    from repro_torch.serving.policy import default_pas_plan
+
+    ucfg, dcfg, params, vae_params = models
+    n_up = U.n_up_steps(ucfg)
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{d % count}" for d in range(P10_SHARDS)]
+    print(f"[chip_smoke]   shard devices: {devices} ({count} visible)")
+    detail: dict = dict(devices=devices)
+    t_phase = time.perf_counter()
+
+    def serve(cfg, reqs, devs, count_launches=False):
+        eng = ShardedDiffusionEngine(ucfg, dcfg, params, vae_params, cfg,
+                                     scheduler=CFG.default_scheduler(cfg), devices=devs)
+        tracked = track_sharded(eng) if eng.cache is not None else None
+        if count_launches:
+            K.reset_launch_counts()
+        with torch.no_grad():
+            done, summary = eng.run(reqs)
+        torch.cuda.synchronize()
+        launches = K.launch_counts() if count_launches else None
+        if sorted(d.rid for d in done) != sorted(r.rid for r in reqs):
+            raise AssertionError(f"phase 10: completed rids {sorted(d.rid for d in done)}")
+        for d in done:
+            if not np.isfinite(d.latent).all() or (
+                    d.image is not None and not np.isfinite(d.image).all()):
+                raise AssertionError(f"phase 10: rid {d.rid} is not finite")
+        return eng, {d.rid: d for d in done}, summary, launches, tracked
+
+    # one shard on the engine's card: bitwise the single-device engine (phase 5)
+    requests, single = phase5
+    _, one, sum_one, _, _ = serve(dataclasses.replace(config, backend="cuda"), requests(),
+                                  [devices[0]])
+    unequal = [r for r in single if not (np.array_equal(one[r].latent, single[r].latent)
+                                         and np.array_equal(one[r].image, single[r].image))]
+    print(f"[chip_smoke]   one shard vs DiffusionEngine, phase 5's {len(single)} requests on "
+          f"cuda: {'bitwise equal' if not unequal else 'DIFFER: ' + str(unequal)} (latents and "
+          f"images); {sum_one['micro_steps']} micro-steps")
+    if unequal:
+        raise AssertionError(f"phase 10: one shard differs from the single engine: {unequal}")
+    t0 = _phase("sharded, one shard", t0)
+
+    # two shards, cached and conditioned, cuda (launches counted) then eager
+    slot_bytes = 8 * sum(math.prod(SM.feat_shape(ucfg, e, 1))
+                         for e in (n_up - config.l_sketch, n_up - config.l_refine))
+    cached = phase10_config(config, slot_bytes)
+    policy = CFG.build_policy(cached, ucfg, dcfg)
+    stream = lambda: [r for _, r in phase6_stream(  # noqa: E731
+        np, ucfg, n_up, policy, GenRequest, default_pas_plan)]
+    runs = {}
+    for backend in ("cuda", "eager"):
+        runs[backend] = serve(dataclasses.replace(cached, backend=backend), stream(), devices,
+                              count_launches=backend == "cuda")
+        eng, _, summary, launches, tracked = runs[backend]
+        print(f"[chip_smoke] serve sharded {backend}: "
+              f"{ {k: summary[k] for k in P10_COUNTERS + ('micro_steps', 'wall_s')} }; "
+              f"split votes {tracked['split']}, spill promotions {tracked['promotions']} "
+              f"({tracked['cross']} onto another shard)"
+              + (f"; launches {launches}" if launches else ""))
+        t0 = _phase(f"serve sharded {backend}", t0)
+    (eng_c, done_c, sum_c, launches, tr_c), (_, done_e, sum_e, _, tr_e) = (
+        runs["cuda"], runs["eager"])
+    if any(launches[name] <= 0 for name in SOURCES):
+        raise AssertionError(f"phase 10: a kernel of the path never launched: {launches}")
+    diff = {k: (sum_c[k], sum_e[k]) for k in P10_COUNTERS if sum_c[k] != sum_e[k]}
+    if diff or tr_c != tr_e:
+        raise AssertionError(f"phase 10: host counters differ, cuda vs eager: {diff} "
+                             f"{tr_c} {tr_e}")
+    if not (sum_c["gossip_routed"] >= 1 and tr_c["cross"] >= 1 and tr_c["split"] >= 1):
+        raise AssertionError(f"phase 10: gossip_routed {sum_c['gossip_routed']}, cross-shard "
+                             f"promotions {tr_c['cross']}, split votes {tr_c['split']}: the "
+                             "stream must exercise each")
+    scale = max(1.0, max(float(np.abs(d.latent).max()) for d in done_e.values()))
+    lat_err = max(float(np.abs(done_c[r].latent - done_e[r].latent).max()) for r in done_e)
+    img_scale = max(1.0, max(float(np.abs(d.image).max()) for d in done_e.values()))
+    img_err = max(float(np.abs(done_c[r].image - done_e[r].image).max()) for r in done_e)
+    print(f"[chip_smoke]   latents cuda vs eager: max |d| {lat_err:.3g} on max |latent| "
+          f"{scale:.3g} (tol {SERVE_TOL * scale:.3g}); images max |d| {img_err:.3g} on max "
+          f"|image| {img_scale:.3g} (tol {IMAGE_TOL * img_scale:.3g})")
+    if not lat_err <= SERVE_TOL * scale:
+        raise AssertionError(f"phase 10: cuda latents differ from eager by {lat_err}")
+    if not img_err <= IMAGE_TOL * img_scale:
+        raise AssertionError(f"phase 10: cuda images differ from eager by {img_err}")
+    detail.update(one_shard=sum_one, cuda=sum_c, eager=sum_e, launches=launches,
+                  tracked=tr_c, latent_err=lat_err, latent_scale=scale, image_err=img_err,
+                  image_scale=img_scale)
+
+    # threshold 0 with the spill on: the txt2img part bitwise the cache off
+    def txt2img():
+        reqs = [r for r in stream() if r.init_latent is None and r.mask is None]
+        for r in reqs:
+            r.policy = None  # every lane at the engine threshold
+        return reqs
+
+    quiet = dict(backend="cuda", decode_images=False)
+    _, zero, sum_zero, _, _ = serve(
+        dataclasses.replace(cached, cache_threshold=0.0, **quiet), txt2img(), devices)
+    _, off, _, _, _ = serve(dataclasses.replace(cached, cache_mode="off", **quiet), txt2img(),
+                            devices)
+    unequal = [r for r in off if not np.array_equal(zero[r].latent, off[r].latent)]
+    print(f"[chip_smoke]   two shards, threshold 0 (spill on) vs cache off, {len(off)} txt2img "
+          f"requests on cuda: {'bitwise equal' if not unequal else 'DIFFER: ' + str(unequal)}; "
+          f"{sum_zero['cache_inserts']} inserts, {sum_zero['cache_spill_demotions']} spill "
+          f"demotions, {sum_zero['demoted_full_steps']} demotions")
+    if unequal or sum_zero["demoted_full_steps"] or sum_zero["spill_promotions"]:
+        raise AssertionError(f"phase 10: threshold 0 is not bitwise cache off: {unequal}")
+    t0 = _phase("sharded threshold 0 vs off", t0)
+
+    # the per-shard kernel shapes phase 3 did not log, held against plain and timed
+    p = eng_c.lanes_per_shard
+    shard_log = ShapeLog(KernelBackend, CUDA)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((p, ucfg.latent_size**2, ucfg.in_channels), generator=gen, device="cuda")
+    t = torch.tensor([981 - 120 * i for i in range(p)], device="cuda")
+    ctx2 = torch.randn((2 * p, ucfg.ctx_len, ucfg.ctx_dim), generator=gen, device="cuda")
+    e_sk, e_rf = eng_c.e_sk, eng_c.e_rf
+    with torch.no_grad():
+        shard_log.phase = f"FULL shard pass (CFG batch {2 * p})"
+        _, cap = SM.cfg_unet_step(ucfg, params, 7.5, x, t, ctx2, capture=(e_sk, e_rf),
+                                  backend=shard_log.backend)
+        for label, e in (("SKETCH", e_sk), ("REFINE", e_rf)):
+            shard_log.phase = f"{label} shard pass (CFG batch {2 * p})"
+            SM.cfg_unet_step(ucfg, params, 7.5, x, t, ctx2, entry_step=e, entry_feat=cap[e],
+                             backend=shard_log.backend)
+        shard_log.phase = "VAE decode (one image)"
+        V.vae_decode(vae_params, x[:1], (ucfg.latent_size,) * 2, backend=shard_log.backend)
+        del cap
+        new = sorted((k for k in shard_log.calls if k not in log.calls), key=str)
+        rows = []
+        for key in new:
+            err, tol, ms, pms, lms, bytes_ms, ops_ms, _ = check_shape(key)
+            rows.append(dict(key=list(key), max_abs_err=err, tol=tol, ms=ms, plain_ms=pms,
+                             library_ms=lms, bound_ms=max(bytes_ms, ops_ms)))
+            print(f"[chip_smoke]   new shape {key}: err {err:.3g} (tol {tol:.3g}) kernel "
+                  f"{ms:.4f} ms plain {pms:.4f} ms library {lms:.4f} ms bound "
+                  f"{max(bytes_ms, ops_ms):.4f} ms")
+            if not err <= tol:
+                raise AssertionError(f"phase 10: {key}: max |kernel - plain| {err} > {tol}")
+    print(f"[chip_smoke]   per-shard kernel shapes (P = {p}): {len(shard_log.calls)} distinct, "
+          f"{len(new)} not in phase 3's log")
+    detail["new_shapes"] = rows
+    t0 = _phase("sharded kernel shapes", t0)
+
+    # the CLI on this machine: --shards 2 serves where two cards are visible,
+    # and is refused with repro's message where one is
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--shards", "2", "--unet", UNET,
+         "--batch", "2", "--timesteps", str(MAX_STEPS), "--requests", "3"],
+        env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    if count < 2:
+        ok = cli.returncode != 0 and "needs 2 visible devices" in cli.stderr
+        what = "refused on one card"
+    else:
+        ok = cli.returncode == 0 and "'shards': 2" in cli.stdout
+        what = "served 3 requests on two cards"
+    tail = (cli.stderr.strip().splitlines() or [""])[-1]
+    print(f"[chip_smoke]   serve --shards 2 ({count} visible): exit {cli.returncode}, {what}: "
+          f"{'as required' if ok else 'NOT as required'}; {tail[:200]}")
+    if not ok:
+        raise AssertionError(f"phase 10: serve --shards 2 on {count} cards: {cli.stderr[-2000:]}")
+    detail["cli"] = dict(visible=count, exit=cli.returncode, checked=what)
+    t0 = _phase("sharded CLI", t0)
+
+    if count >= 2:  # the kernels launch on their operands' card, whichever is current
+        errs = _other_card_check(torch, K)
+        print(f"[chip_smoke]   kernels on cuda:1 called from cuda:0: max |kernel - plain| "
+              f"{errs}")
+        detail["other_card_errs"] = errs
+
+    # the sharded micro-step by vote pair, host wall time with every shard's
+    # card synchronised, beside phase 6's single-device steps
+    state, cache = eng_c._state, eng_c.cache
+    n = cached.n_lanes
+    sel = np.ones((n,), bool)
+    src, dist = np.zeros((n,), np.int64), np.zeros((n,), np.float32)
+    names = ("FULL", "SKETCH", "REFINE")
+
+    def sync():
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)
+
+    def wall_ms(fn, reps=3):
+        fn()
+        sync()
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return (time.perf_counter() - start) / reps * 1e3
+
+    pair_ms = {}
+    with torch.no_grad():
+        for pair in P10_PAIRS:
+            b_arr = np.asarray(pair, np.int64)
+            pair_ms["/".join(names[b] for b in pair)] = wall_ms(
+                lambda: eng_c._micro(state, b_arr, sel, src, dist, cache.state))
+    print(f"[chip_smoke]   sharded micro-step ({P10_SHARDS} shards x {p} lanes, CFG batch "
+          f"{2 * p} a shard, on {devices}), cuda: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in pair_ms.items())
+          + "; single-device (phase 6, CFG batch 4): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in single_ms.items()))
+    wall = time.perf_counter() - t_phase
+    print(f"[chip_smoke]   phase 10 wall {wall:.1f} s")
+    detail.update(pair_ms=pair_ms, single_ms=single_ms, wall_s=wall)
+    _phase("sharded micro-step times", t0)
+    return detail
+
+
 def main() -> int:
     try:
         import torch
@@ -1679,6 +2019,12 @@ def main() -> int:
     # 9. serve through the router ---------------------------------------------------------------
     detail["router"] = _router_phase_run(torch, detail["serve_http"]["requests"],
                                          time.perf_counter())
+
+    # 10. the sharded engine -------------------------------------------------------------------
+    detail["sharded"] = _sharded_phase(
+        torch, np, K, CFG, config, models, (requests, done_c), log,
+        lambda key: _check_shape(torch, F, ops, key, gen), detail["serve_cached"]["micro_ms"],
+        time.perf_counter())
 
     kernels = [
         _kernel_entry(name, src, rep, launches[name], totals[name])

@@ -6,7 +6,9 @@ library under ``<repo>/build/kernels/``, named by a hash of the source and
 flags so an edited source is rebuilt.  The libraries are loaded with
 ``ctypes``; every entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()``, which :func:`check`
-turns into an exception.
+turns into an exception.  :func:`launch` calls one with its operands'
+device current, since a CUDA launch (and ``cudaFuncSetAttribute``) goes to
+the calling thread's current device, not to the device of the pointers.
 
 Nothing here runs at import: the CPU tests import every module on hosts
 that have no ``nvcc``.
@@ -149,6 +151,14 @@ def check(fn: str, err: int) -> None:
 
 def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(fn: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn`` on ``args`` plus ``device``'s current
+    stream, with ``device`` the current device for the call, and raise on
+    its CUDA error."""
+    with torch.cuda.device(device):
+        check(fn, get(fn)(*args, stream_ptr(device)))
 
 
 def require_cuda(name: str, *tensors, dtypes=(torch.float32,)) -> None:

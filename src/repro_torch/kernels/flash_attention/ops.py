@@ -94,13 +94,12 @@ def flash_attention(
         )
     build.require_cuda("flash_attention", q, k, v)
     out = torch.empty_like(q)
-    fn = build.get("flash_attention_f32")
-    err = fn(
+    build.launch(
+        "flash_attention_f32", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         bsz, h, hkv, sq, skv, dh, int(causal), int(window), float(softcap),
-        1.0 / math.sqrt(dh), build.stream_ptr(q.device),
+        1.0 / math.sqrt(dh),
     )
-    build.check("flash_attention_f32", err)
     flash_attention.launches += 1
     return out
 

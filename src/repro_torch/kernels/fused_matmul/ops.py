@@ -123,15 +123,14 @@ def fused_matmul(
         k_pad = -(-k // SPLIT_K_PAD) * SPLIT_K_PAD
         scratch = torch.empty((2, plan.n_tiles * plan.bn, k_pad), device=a.device,
                               dtype=torch.float32)
-    fn_name = f"fused_matmul_{build.DTYPE_SUFFIX[a.dtype]}"
-    err = build.get(fn_name)(
+    build.launch(
+        f"fused_matmul_{build.DTYPE_SUFFIX[a.dtype]}", a.device,
         a.data_ptr(), b.data_ptr(), None if bi is None else bi.data_ptr(), out.data_ptr(),
         None if partials is None else partials.data_ptr(),
         None if stats is None else stats.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        m, n, k, EPILOGUES[epilogue], ROUTES[plan.route], plan.bn, build.stream_ptr(a.device),
+        m, n, k, EPILOGUES[epilogue], ROUTES[plan.route], plan.bn,
     )
-    build.check(fn_name, err)
     fused_matmul.launches += 1
     return out, stats
 

@@ -94,12 +94,11 @@ def stream_norm(
     build.require_cuda("stream_norm", x, sc, *(() if bi is None else (bi,)),
                        dtypes=tuple(build.DTYPE_SUFFIX))
     out = torch.empty_like(x)
-    fn_name = f"stream_norm_{build.DTYPE_SUFFIX[x.dtype]}"
-    err = build.get(fn_name)(
+    build.launch(
+        f"stream_norm_{build.DTYPE_SUFFIX[x.dtype]}", x.device,
         x.data_ptr(), sc.data_ptr(), None if bi is None else bi.data_ptr(), out.data_ptr(),
-        x.numel() // d, d, float(eps), int(mode == "rmsnorm"), build.stream_ptr(x.device),
+        x.numel() // d, d, float(eps), int(mode == "rmsnorm"),
     )
-    build.check(fn_name, err)
     stream_norm.launches += 1
     return out
 
@@ -241,12 +240,12 @@ def stream_group_norm(
     plan = group_norm_plan(bsz, l, c, groups)
     _check_smem(plan)
     out = torch.empty_like(x)
-    err = build.get("group_norm_f32")(
+    build.launch(
+        "group_norm_f32", x.device,
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), bsz, l, c, groups,
         plan.groups_per_slice, plan.cluster, plan.rows_per_block, int(plan.on_chip),
-        float(eps), int(silu), build.stream_ptr(x.device),
+        float(eps), int(silu),
     )
-    build.check("group_norm_f32", err)
     stream_group_norm.launches += 1
     return out
 

@@ -232,14 +232,13 @@ def uniconv(
     if plan.split > 1:
         partials = torch.empty((plan.split, bsz * ho * wo, cout), device=x.device,
                                dtype=torch.float32)
-    fn = build.get("uniconv_f32")
-    err = fn(
+    build.launch(
+        "uniconv_f32", x.device,
         x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(), None if b is None else b.data_ptr(),
         out.data_ptr(), None if partials is None else partials.data_ptr(),
         bsz, h, wdim, cin, cout, w_hi.shape[2], w_hi.shape[1], ksize, stride, plan.bn,
-        plan.split, build.stream_ptr(x.device),
+        plan.split,
     )
-    build.check("uniconv_f32", err)
     uniconv.launches += 1
     if plan.split > 1:
         uniconv.reduce_launches += 1

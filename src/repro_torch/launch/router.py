@@ -87,6 +87,10 @@ def replica_command(args) -> list[str]:
         cmd += ["--quality", args.quality]
     if args.profile is not None:
         cmd += ["--profile", args.profile]
+    if not args.cache_gossip:
+        cmd.append("--no-cache-gossip")
+    if args.shards > 1:
+        cmd += ["--shards", str(args.shards)]
     return cmd
 
 
@@ -131,6 +135,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--kernels", choices=["eager", "cuda"], default=None,
         help="kernel backend of every replica (default: cuda on a GPU, eager on the CPU)",
     )
+    ap.add_argument("--shards", type=int, default=1, help="lane shards per replica")
     ap.add_argument("--cache", choices=["off", "intra", "cross"], default="off")
     ap.add_argument("--cache-threshold", type=float, default=0.15)
     ap.add_argument("--cache-slots", type=int, default=16)
@@ -138,6 +143,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--cache-spill-mb", type=float, default=0.0,
         help="per-replica host-RAM spill ring budget in MiB (0 = off)",
+    )
+    ap.add_argument(
+        "--cache-gossip", dest="cache_gossip", action="store_true", default=True,
+        help="per-replica warm-shard admission (sharded replicas; default on)",
+    )
+    ap.add_argument(
+        "--no-cache-gossip", dest="cache_gossip", action="store_false",
+        help="every replica admits to its emptiest shard only",
     )
     ap.add_argument("--max-inflight", type=int, default=32, help="per replica")
     ap.add_argument("--seed", type=int, default=0)

@@ -18,6 +18,13 @@ requests with close prompts and timesteps reuse each other's), with
 default on a GPU) or ``eager`` (plain PyTorch, the only choice with
 ``--device cpu``).
 
+``--shards N`` splits the continuous engine's lanes into N shards, shard d
+on card d (every shard on the CPU with ``--device cpu``), each with its own
+branch vote and its own slot ring over one shared spill ring; it refuses N
+beyond the visible cards.  ``--cache-gossip`` (the default) admits a warm
+request to the shard whose ring holds its slots; ``--no-cache-gossip``
+admits to the emptiest shard only.
+
 ``--http HOST:PORT`` serves the continuous engine over the asyncio HTTP
 frontend (``repro_torch.serving.frontend``) instead of running a synthetic
 batch: the engine runs on a driver thread, requests arrive as ``POST
@@ -32,6 +39,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --mode diffusion --unet sd_v14 \\
       --requests 4 --batch 2 --timesteps 8 --cache cross --quality draft
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --engine static --pas
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --batch 4 --shards 2 \\
+      --cache cross --timesteps 6
   PYTHONPATH=src python -m repro_torch.launch.serve --unet sd_v14 --batch 2 --timesteps 8 \\
       --cache cross --http 127.0.0.1:0 --port-file build/http.port
 """
@@ -97,6 +106,11 @@ def serve_diffusion(args) -> dict:
                 "--profile requires the continuous engine (calibrated thresholds "
                 "drive the feature cache, which lockstep batches don't have); "
                 "drop --engine static or --profile"
+            )
+        if getattr(args, "shards", 1) > 1:
+            raise SystemExit(
+                "--shards requires the continuous engine (lockstep batches have "
+                "no lane axis to shard); drop --engine static or --shards"
             )
         cfg = CFG.from_args(args)
         ucfg, dcfg, params, vae_params = CFG.init_models(cfg)
@@ -210,6 +224,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="torch device; runs on the GPU unless 'cpu' is asked for explicitly",
     )
     ap.add_argument(
+        "--shards", type=int, default=1,
+        help="lane shards, shard d on card d (continuous engine only; needs >= N "
+        "visible cards, or --device cpu, where every shard is on the CPU)",
+    )
+    ap.add_argument(
         "--cache", choices=["off", "intra", "cross"], default="off",
         help="feature cache: intra = a request reuses its own captures, cross = "
         "requests reuse each other's (continuous engine only)",
@@ -227,6 +246,15 @@ def build_parser() -> argparse.ArgumentParser:
         "--cache-spill-mb", type=float, default=0.0,
         help="host-RAM spill ring budget in MiB (0 = off): ring evictions demote "
         "there and admission promotes matches back onto the device",
+    )
+    ap.add_argument(
+        "--cache-gossip", dest="cache_gossip", action="store_true", default=True,
+        help="admit a warm request to the shard whose ring holds its slots "
+        "(sharded engine; default on)",
+    )
+    ap.add_argument(
+        "--no-cache-gossip", dest="cache_gossip", action="store_false",
+        help="admit to the emptiest shard only",
     )
     ap.add_argument(
         "--http", metavar="HOST:PORT", default=None,

@@ -22,12 +22,17 @@ Modes are disjoint reuse scopes: ``"intra"`` restricts hits to slots the
 same request inserted (DeepCache-style self reuse), ``"cross"`` to other
 requests' slots.  Every key write stamps its slot with a generation, so
 the HTTP layer can publish the warm keys (``slots_summary``) and their
-changes since a cursor (``keys_delta``).  The mesh-sharded rings are not
-ported yet.
+changes since a cursor (``keys_delta``).
+
+The sharded engine's :class:`ShardedFeatureCache` keeps one ring per lane
+shard, its device slots on the shard's device, under one generation clock,
+and one spill ring that every shard shares, so a capture demoted off one
+shard's ring can be promoted onto another's.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import OrderedDict
 
 import numpy as np
@@ -115,6 +120,17 @@ def select_entry_features(
     cond = torch.where(use, pick[:, 0], own[:n])
     unc = torch.where(use, pick[:, 1], own[n:])
     return torch.cat([cond, unc], dim=0)
+
+
+class _GenClock:
+    """Generation counter that every key write ticks; the sharded cache
+    gives one to all its rings, so slot generations are ordered across
+    rings and one ``since`` cursor drives ``keys_delta``."""
+
+    __slots__ = ("value",)
+
+    def __init__(self) -> None:
+        self.value = 0
 
 
 @dataclasses.dataclass
@@ -247,6 +263,8 @@ class SlotRing:
         #: eviction hook, called with the victim slot before its keys are
         #: overwritten (features still on the device): the spill demotes here
         self.on_evict = None
+        #: generation clock; the sharded cache shares one across its rings
+        self._clock = _GenClock()
         self.reset_meta()
 
     def reset_meta(self) -> None:
@@ -263,13 +281,17 @@ class SlotRing:
         #: per-slot generation stamp (the value of ``version`` at the slot's
         #: last key write): ``key_delta(since)`` ships only newer slots
         self.gen = np.zeros((s,), np.int64)
-        #: generation clock: ticked by every key write (0 = cold ring)
-        self.version = 0
+        self._clock.value = 0
         self._tick = 0
         self.probes = 0
         self.probe_hits = 0
         self.inserts = 0
         self.evictions = 0
+
+    @property
+    def version(self) -> int:
+        """Generation of the newest key write (0 = cold ring)."""
+        return self._clock.value
 
     def bucket_of(self, t: int) -> int:
         return int(t) // self.t_bucket
@@ -323,11 +345,12 @@ class SlotRing:
         """A probed step executed as planned (no warm slot matched)."""
         self.probes += 1
 
-    def plan_warmth(self, req) -> float:
+    def plan_warmth(self, req, shard: int | None = None) -> float:
         """Fraction of a queued request's FULL steps that would hit now,
-        probed at the request's own per-step thresholds.  Duck-typed on the
-        engine's ``GenRequest`` (``_lane_plan``, ``_sig``); anything else
-        scores 0."""
+        probed at the request's own per-step thresholds.  ``shard`` is
+        ignored: one ring and the sharded cache share a signature.
+        Duck-typed on the engine's ``GenRequest`` (``_lane_plan``,
+        ``_sig``); anything else scores 0."""
         lp = getattr(req, "_lane_plan", None)
         sig = getattr(req, "_sig", None)
         if lp is None or sig is None or not self.valid.any():
@@ -387,8 +410,8 @@ class SlotRing:
         self.rid[slot] = rid
         self.offset[slot] = offset
         self.valid[slot] = True
-        self.version += 1
-        self.gen[slot] = self.version
+        self._clock.value += 1
+        self.gen[slot] = self._clock.value
         self.inserts += 1
         self._touch(slot)
         return slot
@@ -564,4 +587,199 @@ class FeatureCache(SlotRing):
             "version": self.version,
             "since": int(since),
             "rings": [self.key_delta(since)],
+        }
+
+
+class ShardedFeatureCache:
+    """Shard-local slot rings for the sharded engine, over one shared spill.
+
+    Shard ``d`` owns a :class:`SlotRing` of ``slots_per_shard`` slots whose
+    device features (:class:`CacheState`, ``state[d]``) live on the shard's
+    own device, so a hit is a gather on that device and reuse never moves
+    features between shards.  The rings share one generation clock (one
+    cursor drives ``keys_delta`` over all of them) and one host-RAM
+    :class:`SpillRing`: a capture demoted off shard A's ring can be promoted
+    onto shard B's, the one path by which features cross shards.  Slot
+    indices at this API are shard-local, as the sharded micro-step consumes
+    them.
+    """
+
+    def __init__(
+        self,
+        ucfg: UNetConfig,
+        e_sk: int,
+        e_rf: int,
+        devices,
+        *,
+        slots_per_shard: int = 16,
+        threshold: float = 0.15,
+        t_bucket: int = 125,
+        mode: str = "cross",
+        spill_mb: float = 0.0,
+    ):
+        self.n_shards = len(devices)
+        self.slots_per_shard = slots_per_shard
+        self.mode = mode
+        self.threshold = threshold
+        self.t_bucket = t_bucket
+        self.rings = [
+            SlotRing(slots_per_shard, ucfg.ctx_dim, threshold=threshold, t_bucket=t_bucket,
+                     mode=mode)
+            for _ in devices
+        ]
+        for ring in self.rings[1:]:
+            ring._clock = self.rings[0]._clock
+        self.spill: SpillRing | None = None
+        if spill_mb > 0:
+            self.spill = SpillRing(int(spill_mb * 1024 * 1024), mode=mode)
+            for d, ring in enumerate(self.rings):
+                ring.on_evict = functools.partial(self._demote, d)
+        sk = (slots_per_shard, 2) + SM.feat_shape(ucfg, e_sk, 1)[1:]
+        rf = (slots_per_shard, 2) + SM.feat_shape(ucfg, e_rf, 1)[1:]
+        #: per shard, its device slots on its own device
+        self.state = [
+            CacheState(f_sk=torch.zeros(sk, device=dev), f_rf=torch.zeros(rf, device=dev))
+            for dev in devices
+        ]
+
+    def reset(self) -> None:
+        """Drop every ring's slots and counters, and the spill (cold cache)."""
+        for ring in self.rings:
+            ring.reset_meta()
+        if self.spill is not None:
+            self.spill.reset()
+        for st in self.state:
+            st.f_sk.zero_()
+            st.f_rf.zero_()
+
+    # -- spill tier ----------------------------------------------------------
+
+    def _demote(self, shard: int, slot: int) -> None:
+        """Ring ``shard``'s eviction hook: copy the victim off the shard's
+        device into the shared spill under its old key."""
+        ring, st = self.rings[shard], self.state[shard]
+        if not ring.valid[slot]:
+            return
+        self.spill.put(
+            int(ring.bucket[slot]), int(ring.offset[slot]), int(ring.rid[slot]), ring.sig[slot],
+            st.f_sk[slot].to("cpu", copy=True).numpy(),
+            st.f_rf[slot].to("cpu", copy=True).numpy(),
+        )
+
+    def promote(
+        self, shard: int, t: int, sig: np.ndarray, rid: int,
+        threshold: float | None = None, offset: int = 0, exclude: set[int] | tuple = (),
+    ) -> int | None:
+        """Lift a spill-resident match onto shard ``shard``'s ring, whichever
+        shard demoted it (:meth:`FeatureCache.promote`, the owner rid kept).
+        Returns the shard-local slot or None."""
+        if self.spill is None:
+            return None
+        ring = self.rings[shard]
+        thr = ring.threshold if threshold is None else threshold
+        entry = self.spill.probe(ring.bucket_of(t), sig, rid, thr, offset)
+        if entry is None:
+            return None
+        slot = ring.reserve(entry.bucket * self.t_bucket, entry.sig, entry.rid,
+                            exclude=exclude, offset=entry.offset)
+        if slot is None:
+            return None
+        _upload_slot(self.state[shard], slot, entry.f_sk, entry.f_rf)
+        self.spill.promotions += 1
+        return slot
+
+    # -- shard-local metadata ------------------------------------------------
+
+    def probe(
+        self, shard: int, t: int, sig: np.ndarray, rid: int,
+        threshold: float | None = None, offset: int = 0,
+    ) -> int | None:
+        return self.rings[shard].probe(t, sig, rid, threshold, offset)
+
+    def probe_distance(
+        self, shard: int, t: int, sig: np.ndarray, rid: int,
+        threshold: float | None = None, offset: int = 0,
+    ) -> tuple[int, float] | None:
+        return self.rings[shard].probe_distance(t, sig, rid, threshold, offset)
+
+    def note_hit(self, shard: int, slot: int) -> None:
+        self.rings[shard].note_hit(slot)
+
+    def note_miss(self, shard: int) -> None:
+        self.rings[shard].note_miss()
+
+    def reserve(
+        self, shard: int, t: int, sig: np.ndarray, rid: int,
+        exclude: set[int] | tuple = (), offset: int = 0,
+    ) -> int | None:
+        return self.rings[shard].reserve(t, sig, rid, exclude=exclude, offset=offset)
+
+    def plan_warmth(self, req, shard: int | None = None) -> float:
+        """Warmth on one shard's ring, or on the warmest ring when unpinned."""
+        if shard is not None:
+            return self.rings[shard].plan_warmth(req)
+        return max(ring.plan_warmth(req) for ring in self.rings)
+
+    @property
+    def n_warm(self) -> int:
+        return sum(ring.n_warm for ring in self.rings)
+
+    # -- device insert -------------------------------------------------------
+
+    def insert_many(self, f_sk, f_rf, lanes: np.ndarray, slots: np.ndarray) -> None:
+        """Fill reserved slots from each shard's lane caches (``f_sk[d]`` /
+        ``f_rf[d]``, shard ``d``'s ``[2P, ...]`` tensors), one indexed copy a
+        shard.  ``lanes`` / ``slots`` hold shard-local indices in per-shard
+        segments (positions ``[d * P, (d + 1) * P)`` are shard ``d``'s);
+        entries with ``slots[i] >= slots_per_shard`` are padding and dropped."""
+        p = len(lanes) // self.n_shards
+        for d, st in enumerate(self.state):
+            seg = slice(d * p, (d + 1) * p)
+            _insert_slots(st, f_sk[d], f_rf[d], lanes[seg], slots[seg])
+
+    # -- reporting -----------------------------------------------------------
+
+    def stats(self) -> dict:
+        out = {
+            "cache_mode": self.mode,
+            "cache_shards": self.n_shards,
+            "cache_slots": self.n_shards * self.slots_per_shard,
+            "cache_warm_slots": self.n_warm,
+            "cache_probes": sum(r.probes for r in self.rings),
+            "cache_probe_hits": sum(r.probe_hits for r in self.rings),
+            "cache_inserts": sum(r.inserts for r in self.rings),
+            "cache_evictions": sum(r.evictions for r in self.rings),
+            "shard_hit_rates": [
+                round(r.probe_hits / r.probes, 3) if r.probes else 0.0 for r in self.rings
+            ],
+        }
+        if self.spill is not None:
+            out.update(self.spill.stats())
+        return out
+
+    @property
+    def version(self) -> int:
+        """Newest key generation over all rings (the shared clock)."""
+        return self.rings[0].version
+
+    def slots_summary(self) -> dict:
+        """Every ring's warm-slot keys under the shared ``version``
+        (:meth:`FeatureCache.slots_summary`, one entry of ``rings`` a shard)."""
+        return {
+            "mode": self.mode,
+            "threshold": self.threshold,
+            "t_bucket": self.t_bucket,
+            "version": self.version,
+            "rings": [ring.slot_summary() for ring in self.rings],
+        }
+
+    def keys_delta(self, since: int = 0) -> dict:
+        """Incremental form of :meth:`slots_summary` (``GET /cache/keys``)."""
+        return {
+            "mode": self.mode,
+            "threshold": self.threshold,
+            "t_bucket": self.t_bucket,
+            "version": self.version,
+            "since": int(since),
+            "rings": [ring.key_delta(since) for ring in self.rings],
         }

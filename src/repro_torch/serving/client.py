@@ -485,7 +485,8 @@ async def _check_router(client: FrontendClient) -> bool:
         print(f"[client] fleet: {fleet}")
         # per-tier cache attribution must survive fleet aggregation: replicas
         # always publish these, so their absence means the router dropped them
-        missing = [k for k in ("hbm_hits", "spill_promotions") if k not in fleet]
+        missing = [k for k in ("hbm_hits", "spill_promotions", "gossip_routed")
+                   if k not in fleet]
         if missing:
             print(
                 f"[client] FAIL: fleet stats missing per-tier cache counters {missing}",

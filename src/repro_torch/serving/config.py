@@ -7,9 +7,11 @@ Port of ``repro/serving/config.py``:
   place served weights are made, from ``torch.Generator(seed)`` on the
   engine's device (random weights, as the JAX package serves);
 * :func:`build_policy`: the process-wide quality resolver for an engine;
-* :func:`build_engine`: config -> :class:`EngineBundle`.
-
-Not ported yet: the sharded engine (``--shards``).
+* :func:`check_shards_available`: ``--shards N`` fails fast where fewer
+  than N cards are visible;
+* :func:`build_engine`: config -> :class:`EngineBundle`, through
+  :func:`~repro_torch.serving.engine.make_serving_engine`, so ``n_shards >
+  1`` builds the sharded engine.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.configs import get_unet_config
 from repro_torch.core.shift_score import load_profile
 from repro_torch.models import unet as U
 from repro_torch.models import vae as V
-from repro_torch.serving.engine import DiffusionEngine, EngineConfig
+from repro_torch.serving.engine import DiffusionEngine, EngineConfig, make_serving_engine
 from repro_torch.serving.policy import QualityPolicy
 from repro_torch.serving.scheduler import (
     CacheAwareScheduler,
@@ -61,6 +63,8 @@ def from_args(args: Any, *, decode_images: bool = True) -> EngineConfig:
         cache_threshold=getattr(args, "cache_threshold", 0.15),
         cache_t_bucket=getattr(args, "cache_bucket", 125),
         cache_spill_mb=getattr(args, "cache_spill_mb", 0.0),
+        cache_gossip=getattr(args, "cache_gossip", True),
+        n_shards=getattr(args, "shards", 1),
         backend=getattr(args, "kernels", None),
         device=getattr(args, "device", "cuda"),
         unet=unet,
@@ -70,6 +74,20 @@ def from_args(args: Any, *, decode_images: bool = True) -> EngineConfig:
         quality=getattr(args, "quality", None),
         max_inflight=getattr(args, "max_inflight", 32),
     )
+
+
+def check_shards_available(n_shards: int, device="cuda") -> None:
+    """Fail fast, as ``repro``'s check does, when ``--shards N`` asks for
+    more cards than are visible (on the CPU every shard is ``cpu``, so any
+    N is allowed)."""
+    if n_shards <= 1 or torch.device(device).type != "cuda":
+        return
+    avail = torch.cuda.device_count()
+    if n_shards > avail:
+        raise SystemExit(
+            f"--shards {n_shards} needs {n_shards} visible devices but only {avail} present; "
+            "lower --shards, or pass --device cpu to place every shard on the CPU"
+        )
 
 
 def init_models(
@@ -111,9 +129,10 @@ def build_engine(
     returns them) injects fixed weights; by default they are made from
     ``(config.unet, config.seed)``."""
     config = EngineConfig() if config is None else config
+    check_shards_available(config.n_shards, config.device)
     config.torch_device()  # no GPU and no explicit CPU: raise before any work
     ucfg, dcfg, params, vae_params = init_models(config) if models is None else models
-    engine = DiffusionEngine(
+    engine = make_serving_engine(
         ucfg, dcfg, params, vae_params, config,
         scheduler=scheduler if scheduler is not None else default_scheduler(config),
     )

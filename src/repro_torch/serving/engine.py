@@ -1,4 +1,4 @@
-"""Continuous-batching diffusion serving engine, single device (+ static lockstep baseline).
+"""Continuous-batching diffusion serving engine (+ static lockstep baseline).
 
 Port of ``repro/serving/engine.py``.  The engine advances a fixed set of
 *lanes* through the PAS denoise loop one micro-step at a time.  Lanes hold
@@ -16,10 +16,12 @@ planned FULL step with a warm, close-enough slot runs as SKETCH on the
 slot's features, and a planned SKETCH step whose policy allows it as
 REFINE.  :class:`StaticServer` is the fixed-size lockstep baseline.
 
-The HTTP serving layer drives the engine from its own thread
-(``repro_torch.serving.driver``).  Not ported yet: the sharded engine
-(``n_shards > 1``, with its sharded cache and warm-shard routing), refused
-with ``ValueError``.
+:class:`ShardedDiffusionEngine` holds one lane shard per device of a
+device list, each with its own branch vote and its own slot ring over one
+shared spill ring, and admits warm requests to the shard whose ring holds
+their slots; :func:`make_serving_engine` picks the engine for
+``n_shards``.  The HTTP serving layer drives the engine from its own thread
+(``repro_torch.serving.driver``).
 """
 from __future__ import annotations
 
@@ -30,13 +32,14 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.common.sharding import lane_devices, resolve_device
 from repro_torch.common.types import DiffusionConfig, PASPlan, UNetConfig
 from repro_torch.core import sampler as SM
 from repro_torch.models import diffusion as D
 from repro_torch.models import unet as U
 from repro_torch.models import vae as V
 from repro_torch.serving import lanes as LN
-from repro_torch.serving.cache import FeatureCache, prompt_signature
+from repro_torch.serving.cache import FeatureCache, ShardedFeatureCache, prompt_signature
 from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.policy import ResolvedPolicy
 from repro_torch.serving.scheduler import FIFOScheduler
@@ -125,8 +128,19 @@ class CompletedRequest:
         return self.admitted_s - self.submitted_s
 
 
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not yet ported to repro_torch")
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _tree_device(tree) -> torch.device:
+    """The device of a weight tree's first tensor."""
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values() if isinstance(tree, dict) else tree))
+    return tree.device
 
 
 def torch_device(device: str) -> torch.device:
@@ -169,6 +183,13 @@ class EngineConfig:
     #: host-RAM spill ring under the device slots, in MiB: evictions demote
     #: their features there and admission promotes matches back; 0 = off
     cache_spill_mb: float = 0.0
+    #: the sharded engine admits a queued request to the shard whose ring
+    #: would serve its FULL steps, not to the emptiest shard
+    cache_gossip: bool = True
+    #: lane shards: 1 = the single-device engine; N > 1 =
+    #: :class:`ShardedDiffusionEngine`, ``n_lanes / N`` lanes and
+    #: ``cache_slots`` slots a shard, shard d on card d (all on the CPU
+    #: with ``device="cpu"``)
     n_shards: int = 1
     #: kernel backend: "eager" (plain PyTorch) or "cuda" (the Hopper
     #: kernels); None picks "cuda" on a CUDA device and "eager" on the CPU
@@ -194,8 +215,10 @@ class EngineConfig:
             raise ValueError("cache_spill_mb must be >= 0")
         if self.n_shards < 1:
             raise ValueError("n_shards must be >= 1")
-        if self.n_shards != 1:
-            raise _not_ported(f"n_shards={self.n_shards} (the sharded engine)")
+        if self.n_lanes % self.n_shards != 0:
+            raise ValueError(
+                f"n_lanes={self.n_lanes} must divide evenly over n_shards={self.n_shards}"
+            )
         if self.backend not in (None, "eager", "cuda"):
             raise ValueError(f"backend must be eager|cuda, got {self.backend!r}")
         if self.backend == "cuda" and torch.device(self.device).type != "cuda":
@@ -212,7 +235,8 @@ class EngineConfig:
 
 
 class DiffusionEngine:
-    #: summary tag (the driver's ``/stats`` and ``/healthz`` report it)
+    #: summary tag (the driver's ``/stats`` and ``/healthz`` report it); the
+    #: sharded engine overrides it
     _mode_name = "continuous"
 
     def __init__(
@@ -234,6 +258,28 @@ class DiffusionEngine:
         self.scheduler = scheduler if scheduler is not None else FIFOScheduler()
         self.metrics = ServingMetrics()
 
+        self._build_device_state(params)  # sets cache, _state, _micro, _admit, _release
+        if hasattr(self.scheduler, "attach_cache"):
+            self.scheduler.attach_cache(self.cache)
+        self._decoder: Callable[[torch.Tensor], torch.Tensor] | None = None
+        if vae_params is not None and config.decode_images:
+            lhw = (ucfg.latent_size, ucfg.latent_size)
+            vae_dev = _tree_device(vae_params)
+            # the decode runs where the VAE's weights are, whichever lane
+            self._decoder = lambda z: V.vae_decode(
+                vae_params, z.to(vae_dev), lhw, backend=config.kernels
+            )
+
+        n = config.n_lanes
+        self._lane_req: list[GenRequest | None] = [None] * n
+        self._lane_step = np.zeros((n,), np.int64)
+        self._lane_admit_s = np.zeros((n,), np.float64)
+        self._stall = np.zeros((n,), np.int64)
+
+    def _build_device_state(self, params: Params) -> None:
+        """The feature cache, the lane state and the micro-step, admit and
+        release functions (the sharded engine overrides exactly this)."""
+        config, ucfg = self.config, self.ucfg
         self.cache: FeatureCache | None = None
         if config.cache_mode != "off":
             self.cache = FeatureCache(
@@ -245,25 +291,14 @@ class DiffusionEngine:
                 spill_mb=config.cache_spill_mb,
                 device=self.device,
             )
-        if hasattr(self.scheduler, "attach_cache"):
-            self.scheduler.attach_cache(self.cache)
         self._state = LN.init_lanes(
             ucfg, config.n_lanes, config.max_steps, self.e_sk, self.e_rf, self.device
         )
         self._micro = LN.make_micro_step(
-            ucfg, dcfg, params, self.e_sk, self.e_rf,
+            ucfg, self.dcfg, params, self.e_sk, self.e_rf,
             device=self.device, backend=config.kernels,
         )
-        self._decoder: Callable[[torch.Tensor], torch.Tensor] | None = None
-        if vae_params is not None and config.decode_images:
-            lhw = (ucfg.latent_size, ucfg.latent_size)
-            self._decoder = lambda z: V.vae_decode(vae_params, z, lhw, backend=config.kernels)
-
-        n = config.n_lanes
-        self._lane_req: list[GenRequest | None] = [None] * n
-        self._lane_step = np.zeros((n,), np.int64)
-        self._lane_admit_s = np.zeros((n,), np.float64)
-        self._stall = np.zeros((n,), np.int64)
+        self._admit, self._release = LN.admit, LN.release
 
     # -- submission ---------------------------------------------------------
 
@@ -325,15 +360,34 @@ class DiffusionEngine:
         self.metrics.record_submission(req.quality_tier)
         self.scheduler.add(req)
 
-    def _admit_extras(self, req: GenRequest):
-        """(mask, x_init, noise0) lane tensors of an inpaint request; all None
-        otherwise (the lane then takes the all-ones mask, the identity)."""
-        if req.mask is None:
-            return None, None, None
-        L, c = req.noise.shape
-        to = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(self.device)  # noqa: E731
-        x_init = np.zeros((L, c), np.float32) if req.init_latent is None else req.init_latent
-        return to(req.mask), to(x_init), to(req.noise)
+    def _admit_lane(self, lane: int, req: GenRequest, now_s: float) -> None:
+        """Scatter ``req`` into the empty ``lane``, its tensors on the lane's
+        device.  An inpaint request brings (mask, x_init, noise0); any other
+        takes the all-ones mask, the identity."""
+        dev = self._lane_device(lane)
+        to = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+        extras = (None, None, None)
+        if req.mask is not None:
+            x_init = req.init_latent
+            if x_init is None:
+                x_init = np.zeros(req.noise.shape, np.float32)
+            extras = (to(req.mask), to(x_init), to(req.noise))
+        self._admit(self._state, lane, to(req._entry), to(req.ctx), req._lane_plan, *extras)
+        self._lane_req[lane] = req
+        self._lane_step[lane] = 0
+        self._lane_admit_s[lane] = now_s
+        self._stall[lane] = 0
+
+    def _lane_device(self, lane: int) -> torch.device:
+        return self.device
+
+    def _lane_latent(self, lane: int) -> torch.Tensor:
+        return self._state.x[lane]
+
+    def _ring_of(self, lane: int) -> tuple:
+        """The leading cache arguments that name a lane's ring: none here,
+        the shard on the sharded engine."""
+        return ()
 
     # -- introspection ------------------------------------------------------
 
@@ -364,11 +418,15 @@ class DiffusionEngine:
             return True
         for lane, req in enumerate(self._lane_req):
             if req is not None and req.rid == rid:
-                LN.release(self._state, lane)
+                self._release_lane(lane)
                 self._lane_req[lane] = None
                 self._stall[lane] = 0
                 return True
         return False
+
+    def _release_lane(self, lane: int) -> None:
+        """Mark a lane empty on its device (host mirrors are the caller's)."""
+        self._release(self._state, lane)
 
     def _active_lanes(self) -> list[int]:
         return [i for i, r in enumerate(self._lane_req) if r is not None]
@@ -381,14 +439,16 @@ class DiffusionEngine:
 
     # -- event loop ---------------------------------------------------------
 
-    def _prefetch_spill(self, req: GenRequest) -> None:
+    def _prefetch_spill(self, req: GenRequest, shard: int | None = None) -> None:
         """Admission-time spill prefetch: for each planned FULL step of the
         request that no device slot would serve yet, probe the host spill
-        ring and promote a match onto the device ring, so the lane's first
-        planned FULL step finds it there.  Threshold-0 steps never probe."""
+        ring and promote a match onto the device ring (shard ``shard``'s on
+        the sharded engine), so the lane's first planned FULL step finds it
+        there.  Threshold-0 steps never probe."""
         cache = self.cache
         if cache is None or cache.spill is None or not req.allow_cache:
             return
+        at = () if shard is None else (shard,)
         lp, sig, off = req._lane_plan, req._sig, req.sched_offset
         for i in range(lp.n_steps):
             if lp.branches[i] != SM.FULL or i < CACHE_MIN_STEP:
@@ -397,9 +457,9 @@ class DiffusionEngine:
             if thr <= 0:
                 continue
             t = int(lp.ts[i])
-            if cache.probe(t, sig, req.rid, thr, off) is not None:
+            if cache.probe(*at, t, sig, req.rid, thr, off) is not None:
                 continue  # already warm on the device ring
-            if cache.promote(t, sig, req.rid, thr, off) is not None:
+            if cache.promote(*at, t, sig, req.rid, thr, off) is not None:
                 self.metrics.spill_promotions += 1
 
     def _backfill(self, now_s: float) -> None:
@@ -410,17 +470,7 @@ class DiffusionEngine:
             if req is None:
                 return
             self._prefetch_spill(req)
-            LN.admit(
-                self._state, lane,
-                torch.as_tensor(req._entry, dtype=torch.float32).to(self.device),
-                torch.as_tensor(req.ctx, dtype=torch.float32).to(self.device),
-                req._lane_plan,
-                *self._admit_extras(req),
-            )
-            self._lane_req[lane] = req
-            self._lane_step[lane] = 0
-            self._lane_admit_s[lane] = now_s
-            self._stall[lane] = 0
+            self._admit_lane(lane, req, now_s)
 
     def _probe_eligible(self, req: GenRequest, lane: int, planned: int) -> bool:
         """Whether a lane's next planned step may be served from the cache:
@@ -449,38 +499,85 @@ class DiffusionEngine:
                 continue
             step = self._lane_step[lane]
             hit = self.cache.probe_distance(
-                int(req._lane_plan.ts[step]), req._sig, req.rid,
+                *self._ring_of(lane), int(req._lane_plan.ts[step]), req._sig, req.rid,
                 float(req._lane_plan.thr[step]), req.sched_offset,
             )
             if hit is not None:
                 hits[lane] = hit
         return hits
 
+    def _vote_inputs(self, active: list[int]):
+        """(planned class by lane, warm-slot hits, effective classes) of the
+        active lanes.  Cache demotion: a planned FULL step with a warm slot
+        runs as SKETCH on the slot's features; a planned SKETCH step whose
+        policy allows it as REFINE.  The vote is over the effective classes."""
+        planned = np.array(
+            [self._lane_req[i]._lane_plan.branches[self._lane_step[i]] for i in active], np.int64
+        )
+        hit_slots = self._probe_cache(active, planned)
+        planned_of = {int(lane): int(planned[k]) for k, lane in enumerate(active)}
+        effective = planned.copy()
+        for k, lane in enumerate(active):
+            if lane in hit_slots:
+                effective[k] = SM.SKETCH if planned[k] == SM.FULL else SM.REFINE
+        return planned_of, hit_slots, effective
+
+    def _settle_partial(self, advanced, planned_of, hit_slots, feat_src, feat_dist, ring=()):
+        """Accounting of the lanes a SKETCH or REFINE vote advances, on
+        ring ``ring``: each hit writes its slot and distance into
+        ``feat_src`` / ``feat_dist`` and counts; a planned partial step that
+        probed and missed counts a miss.  Returns (FULL->SKETCH,
+        SKETCH->REFINE) demotions."""
+        n_demoted = n_demoted_rf = 0
+        for lane in advanced:
+            hit = hit_slots.get(int(lane))
+            if hit is None:
+                if self._probe_eligible(self._lane_req[lane], int(lane), planned_of[int(lane)]):
+                    self.cache.note_miss(*ring)
+                continue
+            slot, dist = hit
+            feat_src[lane] = slot
+            feat_dist[lane] = dist
+            self.cache.note_hit(*ring, slot)
+            if planned_of[int(lane)] == SM.FULL:
+                n_demoted += 1
+            else:
+                n_demoted_rf += 1
+        return n_demoted, n_demoted_rf
+
+    def _capture_slot(self, lane: int, taken: set[int], ring=()) -> int | None:
+        """After a FULL micro-step: count the lane's probed FULL step as a
+        miss and reserve a slot on ring ``ring`` for its fresh capture,
+        conflict-free with ``taken`` (which it joins); None when the ring is
+        smaller than the FULL batch, or when only this request could
+        consume the capture (``intra``) and it opted out."""
+        req = self._lane_req[lane]
+        step = self._lane_step[lane]
+        if req.allow_cache and step >= CACHE_MIN_STEP:
+            self.cache.note_miss(*ring)  # probed FULL executed as FULL
+        if self.config.cache_mode == "intra" and not req.allow_cache:
+            return None
+        slot = self.cache.reserve(
+            *ring, int(req._lane_plan.ts[step]), req._sig, req.rid, exclude=taken,
+            offset=req.sched_offset,
+        )
+        if slot is not None:
+            taken.add(slot)
+        return slot
+
     def _reserve_captures(self, advanced: np.ndarray) -> None:
-        """After a FULL micro-step: reserve a slot for each fresh capture on
-        the host (conflict-free within the batch), then fill them all in one
-        indexed copy from the lane caches the micro-step just wrote."""
+        """Reserve a slot for each fresh capture on the host, then fill them
+        all in one indexed copy from the lane caches the micro-step just
+        wrote."""
         n = self.config.n_lanes
         lanes = np.zeros((n,), np.int64)
         slots = np.full((n,), self.cache.n_slots, np.int64)  # padding: dropped
         taken: set[int] = set()
         for k, lane in enumerate(advanced):
-            req = self._lane_req[lane]
-            t = int(req._lane_plan.ts[self._lane_step[lane]])
-            if req.allow_cache and self._lane_step[lane] >= CACHE_MIN_STEP:
-                self.cache.note_miss()  # probed FULL executed as FULL
-            if self.config.cache_mode == "intra" and not req.allow_cache:
-                # only this request could consume the capture, and it opted
-                # out: evict no useful slot for it
-                continue
-            slot = self.cache.reserve(
-                t, req._sig, req.rid, exclude=taken, offset=req.sched_offset
-            )
-            if slot is None:  # ring smaller than the FULL batch
-                continue
-            taken.add(slot)
-            lanes[k] = int(lane)
-            slots[k] = slot
+            slot = self._capture_slot(int(lane), taken)
+            if slot is not None:
+                lanes[k] = int(lane)
+                slots[k] = slot
         if taken:
             self.cache.insert_many(self._state.f_sk, self._state.f_rf, lanes, slots)
 
@@ -498,18 +595,7 @@ class DiffusionEngine:
             return []
         t_step0 = time.perf_counter()
 
-        planned = np.array(
-            [self._lane_req[i]._lane_plan.branches[self._lane_step[i]] for i in active], np.int64
-        )
-        # cache demotion: a planned FULL step with a warm slot runs as SKETCH
-        # on the slot's features; a planned SKETCH step whose policy allows
-        # it as REFINE.  The vote is over the effective classes.
-        hit_slots = self._probe_cache(active, planned)
-        planned_of = {int(lane): int(planned[k]) for k, lane in enumerate(active)}
-        effective = planned.copy()
-        for k, lane in enumerate(active):
-            if lane in hit_slots:
-                effective[k] = SM.SKETCH if planned[k] == SM.FULL else SM.REFINE
+        planned_of, hit_slots, effective = self._vote_inputs(active)
         b_star = self.scheduler.pick_branch(effective, self._stall[active])
 
         # the advance mask follows from the host-known plans and cache keys:
@@ -526,22 +612,8 @@ class DiffusionEngine:
             # distance strictly against the lane's float32 threshold
             feat_dist = np.full((n,), np.inf, np.float32)
             if b_star in (SM.SKETCH, SM.REFINE):
-                for lane in advanced:
-                    hit = hit_slots.get(int(lane))
-                    if hit is None:
-                        # a planned partial step that probed and missed
-                        if self._probe_eligible(self._lane_req[lane], int(lane),
-                                                planned_of[int(lane)]):
-                            self.cache.note_miss()
-                        continue
-                    slot, dist = hit
-                    feat_src[lane] = slot
-                    feat_dist[lane] = dist
-                    self.cache.note_hit(slot)
-                    if planned_of[int(lane)] == SM.FULL:
-                        n_demoted += 1
-                    else:
-                        n_demoted_rf += 1
+                n_demoted, n_demoted_rf = self._settle_partial(
+                    advanced, planned_of, hit_slots, feat_src, feat_dist)
             self._micro(
                 self._state, b_star, sel_t,
                 torch.from_numpy(feat_src).to(self.device),
@@ -564,13 +636,20 @@ class DiffusionEngine:
             n_refine=n_adv if b_star == SM.REFINE else 0,
             n_demoted=n_demoted, n_demoted_refine=n_demoted_rf,
         )
+        done = self._retire(active, now_s, clock)
+        self.metrics.record_step_time(self.config.kernels, time.perf_counter() - t_step0)
+        return done
 
+    def _retire(
+        self, active: list[int], now_s: float, clock: Callable[[], float] | None
+    ) -> list[CompletedRequest]:
+        """Decode and release every active lane whose schedule has ended."""
         done: list[CompletedRequest] = []
         for lane in active:
             req = self._lane_req[lane]
             if self._lane_step[lane] < req.timesteps:
                 continue
-            latent = self._state.x[lane].clone()
+            latent = self._lane_latent(lane).clone()
             image = None
             if self._decoder is not None:
                 image = self._decoder(latent[None])[0].cpu().numpy()
@@ -585,10 +664,9 @@ class DiffusionEngine:
                     completed_s=clock() if clock is not None else now_s,
                 )
             )
-            LN.release(self._state, lane)
+            self._release_lane(lane)
             self._lane_req[lane] = None
             self.metrics.record_completion(done[-1].latency_s, done[-1].queue_wait_s)
-        self.metrics.record_step_time(self.config.kernels, time.perf_counter() - t_step0)
         return done
 
     def run(self, requests: Sequence[GenRequest]) -> tuple[list[CompletedRequest], dict]:
@@ -614,10 +692,259 @@ class DiffusionEngine:
             lanes=self.config.n_lanes,
             kernels=self.config.kernels,
             device=str(self.device),
+            **self._summary_extra(),
         )
         if self.cache is not None:
             summary.update(self.cache.stats())
         return done, summary
+
+    def _summary_extra(self) -> dict:
+        return {}
+
+
+class ShardedDiffusionEngine(DiffusionEngine):
+    """Continuous batching with the lanes in shards, one shard a device.
+
+    Shard ``d`` owns lanes ``[d * P, (d + 1) * P)`` (``P = n_lanes /
+    n_shards``) on ``devices[d]``: by default card ``d`` (all ``cpu`` with
+    ``device="cpu"``), or an explicit list, where shards may share a card.
+    The U-Net weights are held once per distinct device.  The branch vote
+    is per shard: each shard runs its own class, so one shard can run a
+    FULL batch while another runs SKETCH, and a shard with no active lane
+    is parked on REFINE under an all-false mask.  Admission fills the
+    emptiest shard, or, with ``cache_gossip``, the shard whose ring would
+    serve a queued request's FULL steps (counted in ``gossip_routed``).
+    The feature cache is a :class:`~repro_torch.serving.cache.ShardedFeatureCache`:
+    probes, hits and inserts stay on the lane's own shard; only the shared
+    spill ring carries features across shards.
+
+    ``n_shards=1`` on the engine's device runs the single-device engine's
+    micro-steps on the same batches in the same order, so its latents are
+    bit for bit :class:`DiffusionEngine`'s; :func:`make_serving_engine`
+    picks :class:`DiffusionEngine` itself at one shard.
+    """
+
+    _mode_name = "sharded-continuous"
+
+    def __init__(
+        self,
+        ucfg: UNetConfig,
+        dcfg: DiffusionConfig,
+        params: Params,
+        vae_params: Params | None = None,
+        config: EngineConfig = EngineConfig(),
+        scheduler: FIFOScheduler | None = None,
+        devices: Sequence | None = None,
+    ):
+        self._devices_arg = devices
+        super().__init__(ucfg, dcfg, params, vae_params, config, scheduler=scheduler)
+
+    def _build_device_state(self, params: Params) -> None:
+        config, ucfg = self.config, self.ucfg
+        devices = self._devices_arg
+        if devices is None:
+            devices = lane_devices(config.n_shards, config.device)
+        self.devices = [resolve_device(d) for d in devices]
+        if len(self.devices) != config.n_shards:
+            raise ValueError(
+                f"{len(self.devices)} shard devices but config.n_shards={config.n_shards}"
+            )
+        self.n_shards = config.n_shards
+        self.lanes_per_shard = config.n_lanes // self.n_shards
+        home = _tree_device(params)
+        #: the U-Net weights on each distinct device (the caller's own tree
+        #: where it already lies, so its uniconv weight preparation is shared)
+        self._params_on = {
+            dev: params if dev == home else _tree_map(lambda t, d=dev: t.to(d), params)
+            for dev in dict.fromkeys(self.devices)
+        }
+        self.cache: ShardedFeatureCache | None = None
+        if config.cache_mode != "off":
+            self.cache = ShardedFeatureCache(
+                ucfg, self.e_sk, self.e_rf, self.devices,
+                slots_per_shard=config.cache_slots,
+                threshold=config.cache_threshold,
+                t_bucket=config.cache_t_bucket,
+                mode=config.cache_mode,
+                spill_mb=config.cache_spill_mb,
+            )
+        self._state = LN.init_sharded_lanes(
+            ucfg, config.n_lanes, config.max_steps, self.e_sk, self.e_rf, self.devices
+        )
+        self._micro = LN.make_sharded_micro_step(
+            ucfg, self.dcfg, self._params_on, self.e_sk, self.e_rf, self.devices,
+            backend=config.kernels,
+        )
+        self._admit = LN.make_sharded_admit()
+        self._release = LN.make_sharded_release()
+
+    # -- shard geometry -------------------------------------------------------
+
+    def _shard_of(self, lane: int) -> int:
+        return int(lane) // self.lanes_per_shard
+
+    def _lane_device(self, lane: int) -> torch.device:
+        return self.devices[self._shard_of(lane)]
+
+    def _lane_latent(self, lane: int) -> torch.Tensor:
+        s, i = self._state.locate(lane)
+        return self._state.shards[s].x[i]
+
+    def _ring_of(self, lane: int) -> tuple:
+        return (self._shard_of(lane),)
+
+    def _shard_active_counts(self) -> list[int]:
+        counts = [0] * self.n_shards
+        for lane in self._active_lanes():
+            counts[self._shard_of(lane)] += 1
+        return counts
+
+    def _shard_remaining_branches(self, shard: int) -> list[np.ndarray]:
+        """Remaining branch vectors of the shard's own in-flight lanes: the
+        alignment scope of admission, since the vote is per shard."""
+        lo = shard * self.lanes_per_shard
+        return [
+            self._lane_req[i]._lane_plan.branches[self._lane_step[i] : self._lane_req[i].timesteps]
+            for i in range(lo, lo + self.lanes_per_shard)
+            if self._lane_req[i] is not None
+        ]
+
+    def _summary_extra(self) -> dict:
+        return {
+            "shards": self.n_shards,
+            "lanes_per_shard": self.lanes_per_shard,
+            "devices": [str(d) for d in self.devices],
+        }
+
+    # -- event loop -----------------------------------------------------------
+
+    def _backfill(self, now_s: float) -> None:
+        """Admit queued requests, each into the lowest empty lane of the
+        emptiest shard, re-ranked at every admission so a burst spreads;
+        with ``cache_gossip``, into the shard the scheduler's warmth map
+        names instead, when it has a free lane."""
+        while True:
+            empty = [i for i, r in enumerate(self._lane_req) if r is None]
+            if not empty:
+                return
+            counts = self._shard_active_counts()
+            lane = min(empty, key=lambda i: (counts[self._shard_of(i)], i))
+            shard = self._shard_of(lane)
+            if self.config.cache_gossip and hasattr(self.scheduler, "peek_warm_shard"):
+                warm = self.scheduler.peek_warm_shard(sorted({self._shard_of(i) for i in empty}))
+                if warm is not None and warm != shard:
+                    lane = min(i for i in empty if self._shard_of(i) == warm)
+                    shard = warm
+                    self.metrics.gossip_routed += 1
+            req = self.scheduler.next_request(self._shard_remaining_branches(shard), shard=shard)
+            if req is None:
+                return
+            self._prefetch_spill(req, shard)
+            self._admit_lane(lane, req, now_s)
+
+    def step(
+        self, now_s: float = 0.0, clock: Callable[[], float] | None = None
+    ) -> list[CompletedRequest]:
+        """Backfill, run one micro-step on every shard with an active lane,
+        each in its own shard's vote, retire finished lanes.  A lane
+        advances when its effective class is its shard's vote."""
+        self._backfill(now_s)
+        active = self._active_lanes()
+        if not active:
+            return []
+        t_step0 = time.perf_counter()
+
+        planned_of, hit_slots, effective = self._vote_inputs(active)
+        n = self.config.n_lanes
+        active_arr = np.asarray(active)
+        shard_ids = active_arr // self.lanes_per_shard
+        b_arr = np.full((self.n_shards,), SM.REFINE, np.int64)  # idle shards: the cheapest
+        sel = np.zeros((n,), bool)
+        votes: list[tuple[int, int, np.ndarray]] = []  # (shard, class, advanced lanes)
+        for s in range(self.n_shards):
+            mine = shard_ids == s
+            if not mine.any():
+                continue
+            lanes_s = active_arr[mine]
+            b = self.scheduler.pick_branch(effective[mine], self._stall[lanes_s])
+            b_arr[s] = b
+            adv = lanes_s[effective[mine] == b]
+            sel[adv] = True
+            votes.append((s, b, adv))
+
+        n_demoted = n_demoted_rf = 0
+        if self.cache is not None:
+            feat_src = np.full((n,), -1, np.int64)
+            feat_dist = np.full((n,), np.inf, np.float32)
+            for s, b, adv in votes:
+                if b != SM.FULL:
+                    d, r = self._settle_partial(
+                        adv, planned_of, hit_slots, feat_src, feat_dist, ring=(s,))
+                    n_demoted += d
+                    n_demoted_rf += r
+            self._micro(self._state, b_arr, sel, feat_src, feat_dist, self.cache.state)
+            self._reserve_shard_captures(votes)
+        else:
+            self._micro(self._state, b_arr, sel)
+
+        self._lane_step[sel] += 1
+        self._stall[active] += 1
+        self._stall[sel] = 0
+        by_class = {
+            b: sum(len(adv) for _, bb, adv in votes if bb == b)
+            for b in (SM.FULL, SM.SKETCH, SM.REFINE)
+        }
+        self.metrics.record_step(
+            n, len(active), int(sel.sum()),
+            n_full=by_class[SM.FULL], n_sketch=by_class[SM.SKETCH],
+            n_refine=by_class[SM.REFINE],
+            n_demoted=n_demoted, n_demoted_refine=n_demoted_rf,
+            shard_active=[int((shard_ids == s).sum()) for s in range(self.n_shards)],
+        )
+        done = self._retire(active, now_s, clock)
+        self.metrics.record_step_time(self.config.kernels, time.perf_counter() - t_step0)
+        return done
+
+    def _reserve_shard_captures(self, votes) -> None:
+        """After the shards' FULL votes: reserve each fresh capture a slot on
+        its own shard's ring, then fill them with one indexed copy a shard.
+        The index arrays hold shard-local lanes and slots in per-shard
+        segments (``ShardedFeatureCache.insert_many``)."""
+        n = self.config.n_lanes
+        lanes = np.zeros((n,), np.int64)
+        slots = np.full((n,), self.cache.slots_per_shard, np.int64)  # padding: dropped
+        any_insert = False
+        for s, b, adv in votes:
+            if b != SM.FULL:
+                continue
+            base = pos = s * self.lanes_per_shard
+            taken: set[int] = set()
+            for lane in adv:
+                slot = self._capture_slot(int(lane), taken, ring=(s,))
+                if slot is None:
+                    continue
+                lanes[pos] = int(lane) - base
+                slots[pos] = slot
+                pos += 1
+                any_insert = True
+        if any_insert:
+            shards = self._state.shards
+            self.cache.insert_many(
+                [sh.f_sk for sh in shards], [sh.f_rf for sh in shards], lanes, slots)
+
+
+def make_serving_engine(
+    ucfg: UNetConfig,
+    dcfg: DiffusionConfig,
+    params: Params,
+    vae_params: Params | None = None,
+    config: EngineConfig = EngineConfig(),
+    scheduler: FIFOScheduler | None = None,
+) -> DiffusionEngine:
+    """The engine for ``config.n_shards``: :class:`DiffusionEngine` at 1,
+    :class:`ShardedDiffusionEngine` above."""
+    cls = ShardedDiffusionEngine if config.n_shards > 1 else DiffusionEngine
+    return cls(ucfg, dcfg, params, vae_params, config, scheduler=scheduler)
 
 
 class StaticServer:

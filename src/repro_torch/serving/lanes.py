@@ -1,6 +1,6 @@
 """Per-lane sampler state for step-level continuous batching.
 
-Port of the single-device half of ``repro/serving/lanes.py``.  The lane
+Port of ``repro/serving/lanes.py``.  The lane
 state is a set of lane-major tensors updated **in place**: where the JAX
 micro-step donates its input state and returns a new one, :func:`admit`,
 :func:`release` and the micro-step here write into the tensors they are
@@ -16,6 +16,11 @@ Layout (unchanged from the JAX package):
   lane, and an empty lane has ``n_steps == 0`` and all-zero tensors;
 * ``thr`` holds each lane's per-step cache threshold (the quality policy's
   resolution), compared on the device in float32 by the cached micro-step.
+
+The sharded engine's lanes (:class:`ShardedLaneState`) are one
+:class:`LaneState` a shard, each on its shard's own device, and its
+micro-step runs the single-device micro-step on each shard with the
+shard's own branch class.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.common.sharding import device_guard
 from repro_torch.common.types import DiffusionConfig, PASPlan, UNetConfig
 from repro_torch.core import sampler as SM
 from repro_torch.models import diffusion as D
@@ -278,5 +284,127 @@ def make_micro_step(
         state.f_sk.copy_(torch.where(sel2, f_sk_new, state.f_sk))
         state.f_rf.copy_(torch.where(sel2, f_rf_new, state.f_rf))
         state.step += sel.to(state.step.dtype)
+
+    return micro_step
+
+
+# ---------------------------------------------------------------------------
+# Lane shards: one LaneState a device.
+#
+# The JAX package lays the sharded lanes out as [N, 2, ...] so GSPMD can
+# shard every leaf on its leading axis, and runs ONE shard_map program in
+# which each shard switches on its own branch class.  Here shard d is a
+# plain LaneState of P = N / n_shards lanes on its own device, in the
+# single-device [2P, ...] CFG layout, and the sharded micro-step issues the
+# single-device micro-step on each shard in turn.  The shard-local math is
+# the same as the JAX package's (its local body is the single-device body
+# on P lanes); the launches are asynchronous, so shards on different cards
+# overlap.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ShardedLaneState:
+    """Contiguous lane shards: ``shards[d]`` holds lanes ``[d * P, (d + 1) * P)``."""
+
+    shards: list[LaneState]
+
+    @property
+    def lanes_per_shard(self) -> int:
+        return self.shards[0].n_lanes
+
+    def locate(self, lane: int) -> tuple[int, int]:
+        """(shard, lane within the shard) of a global lane index."""
+        return divmod(int(lane), self.lanes_per_shard)
+
+
+def init_sharded_lanes(
+    ucfg: UNetConfig, n_lanes: int, max_steps: int, e_sk: int, e_rf: int, devices
+) -> ShardedLaneState:
+    """All-empty lanes, ``n_lanes / len(devices)`` on each device."""
+    if n_lanes % len(devices) != 0:
+        raise ValueError(f"n_lanes={n_lanes} must divide over {len(devices)} shards")
+    p = n_lanes // len(devices)
+    return ShardedLaneState([init_lanes(ucfg, p, max_steps, e_sk, e_rf, dev) for dev in devices])
+
+
+def make_sharded_admit():
+    """:func:`admit` on the lane's own shard, its tensors moved to the
+    shard's device: ``admit(state, lane, noise, ctx, plan, mask, x_init, noise0)``."""
+
+    def admit_sharded(
+        state: ShardedLaneState, lane: int, noise, ctx, plan: LanePlan,
+        mask=None, x_init=None, noise0=None,
+    ) -> None:
+        s, i = state.locate(lane)
+        shard = state.shards[s]
+        dev = shard.x.device
+        to = lambda t: None if t is None else t.to(dev)  # noqa: E731
+        admit(shard, i, to(noise), to(ctx), plan, to(mask), to(x_init), to(noise0))
+
+    return admit_sharded
+
+
+def make_sharded_release():
+    """:func:`release` on the lane's own shard: ``release(state, lane)``."""
+
+    def release_sharded(state: ShardedLaneState, lane: int) -> None:
+        s, i = state.locate(lane)
+        release(state.shards[s], i)
+
+    return release_sharded
+
+
+def make_sharded_micro_step(
+    ucfg: UNetConfig,
+    dcfg: DiffusionConfig,
+    params_on,
+    e_sk: int,
+    e_rf: int,
+    devices,
+    *,
+    backend=None,
+):
+    """Build the sharded micro-step
+    ``micro_step(state, b_arr, sel, feat_src=None, feat_dist=None, cache=None)``.
+
+    ``params_on`` maps each distinct device to the U-Net weights held
+    there (one copy a card, shared by the shards on it).  The host arrays
+    are global: ``b_arr`` [n_shards] is each shard's own branch class,
+    ``sel`` [N] the advance mask, ``feat_src`` [N] *shard-local* slot
+    indices (-1 = own features) and ``feat_dist`` [N] float32 probed
+    distances; ``cache`` is the sharded cache's per-shard
+    :class:`~repro_torch.serving.cache.CacheState` list.  Shard ``d`` runs
+    :func:`make_micro_step`'s step on its P lanes in class ``b_arr[d]``,
+    with its device current, so every kernel launches there and the
+    float32 threshold comparison runs there.  A shard whose mask is all
+    false (an idle shard, parked on REFINE by the engine) is not run: its
+    step would change nothing.
+    """
+    steps = {
+        dev: make_micro_step(ucfg, dcfg, params_on[dev], e_sk, e_rf, device=dev, backend=backend)
+        for dev in dict.fromkeys(devices)
+    }
+
+    def micro_step(
+        state: ShardedLaneState,
+        b_arr: np.ndarray,
+        sel: np.ndarray,
+        feat_src: np.ndarray | None = None,
+        feat_dist: np.ndarray | None = None,
+        cache=None,
+    ) -> None:
+        p = state.lanes_per_shard
+        for d, (dev, shard) in enumerate(zip(devices, state.shards)):
+            seg = slice(d * p, (d + 1) * p)
+            if not sel[seg].any():
+                continue
+            to = lambda a: torch.from_numpy(np.ascontiguousarray(a[seg])).to(dev)  # noqa: E731
+            with device_guard(dev):
+                if cache is None:
+                    steps[dev](shard, int(b_arr[d]), to(sel))
+                else:
+                    steps[dev](shard, int(b_arr[d]), to(sel), to(feat_src), to(feat_dist),
+                               cache[d])
 
     return micro_step

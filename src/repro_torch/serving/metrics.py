@@ -1,14 +1,15 @@
 """Serving metrics: latency percentiles, throughput, lane occupancy, cache reuse.
 
-The port's own copy of the single-device part of
-``repro/serving/metrics.py``: one sample per micro-step (occupancy, advance
-efficiency, executed and cache-demoted branch classes, host wall time), one
-per submitted request (its resolved quality tier) and one per completed
-request (queue wait and latency), collapsed by :meth:`summary`.
+The port's own copy of ``repro/serving/metrics.py``: one sample per
+micro-step (occupancy, advance efficiency, executed and cache-demoted
+branch classes, host wall time, and the sharded engine's active lanes per
+shard), one per submitted request (its resolved quality tier) and one per
+completed request (queue wait and latency), collapsed by :meth:`summary`.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 
@@ -19,6 +20,8 @@ class ServingMetrics:
     queue_waits_s: list[float] = dataclasses.field(default_factory=list)
     occupancy: list[float] = dataclasses.field(default_factory=list)
     advance_eff: list[float] = dataclasses.field(default_factory=list)
+    #: per-micro-step active-lane count per shard (sharded engine only)
+    shard_active: list[list[int]] = dataclasses.field(default_factory=list)
     micro_steps: int = 0
     lane_steps_advanced: int = 0
     #: lane-steps executed per branch class (FULL = a full U-Net pass),
@@ -34,7 +37,7 @@ class ServingMetrics:
     hbm_hits: int = 0
     #: spill-resident captures lifted back onto the device ring at admission
     spill_promotions: int = 0
-    #: admissions redirected to a cache-warm shard (sharded engine; 0 here)
+    #: admissions the sharded engine redirected to a cache-warm shard
     gossip_routed: int = 0
     #: submitted requests per resolved quality tier ("full"/"pas" = no knob)
     quality_mix: dict[str, int] = dataclasses.field(default_factory=dict)
@@ -47,6 +50,7 @@ class ServingMetrics:
         self, n_lanes: int, n_active: int, n_advanced: int,
         n_full: int = 0, n_sketch: int = 0, n_refine: int = 0,
         n_demoted: int = 0, n_demoted_refine: int = 0,
+        shard_active: Sequence[int] | None = None,
     ) -> None:
         self.micro_steps += 1
         self.lane_steps_advanced += n_advanced
@@ -60,6 +64,8 @@ class ServingMetrics:
         self.occupancy.append(n_active / max(n_lanes, 1))
         if n_active:
             self.advance_eff.append(n_advanced / n_active)
+        if shard_active is not None:
+            self.shard_active.append(list(shard_active))
 
     def record_submission(self, tier: str) -> None:
         """Count one submitted request under its resolved quality tier."""
@@ -106,4 +112,20 @@ class ServingMetrics:
                 k: {"steps": c, "mean_s": round(t / max(c, 1), 6)}
                 for k, (c, t) in sorted(self.step_time_by_backend.items())
             },
+            **self._shard_summary(),
+        }
+
+    def _shard_summary(self) -> dict:
+        """Lane occupancy across shards (sharded engine only): each shard's
+        mean active lanes, and their min/max as ``shard_occupancy_balance``
+        (1.0 = balanced admission, 0.0 = a shard sat idle the whole run)."""
+        if not self.shard_active:
+            return {}
+        per_shard = np.asarray(self.shard_active, np.float64).mean(axis=0)
+        peak = float(per_shard.max())
+        return {
+            "shard_mean_active": [round(float(v), 3) for v in per_shard],
+            "shard_occupancy_balance": (
+                round(float(per_shard.min()) / peak, 3) if peak > 0 else 0.0
+            ),
         }

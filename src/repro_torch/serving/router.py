@@ -80,7 +80,7 @@ REPLICA_STAT_KEYS = (
     "mean_occupancy", "throughput_req_s", "micro_steps",
     "cache_hit_rate", "cache_warm_slots", "cache_probes",
     "cache_probe_hits", "cache_evictions", "kernels", "mode",
-    "hbm_hits", "spill_promotions",
+    "hbm_hits", "spill_promotions", "gossip_routed",
     "cache_spill_demotions", "cache_spill_promotions", "cache_spill_entries",
 )
 
@@ -88,7 +88,7 @@ REPLICA_STAT_KEYS = (
 FLEET_SUM_KEYS = (
     "requests", "completed", "micro_steps", "full_steps", "sketch_steps",
     "refine_steps", "cache_probes", "cache_probe_hits", "cache_inserts",
-    "cache_evictions", "hbm_hits", "spill_promotions",
+    "cache_evictions", "hbm_hits", "spill_promotions", "gossip_routed",
     "cache_spill_demotions", "cache_spill_promotions", "cache_spill_entries",
 )
 

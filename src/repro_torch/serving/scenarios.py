@@ -4,9 +4,9 @@ Port of ``repro/serving/scenarios.py``: one canonical request stream that
 covers every conditioned task the engine runs (img2img at a truncating and
 an almost-full strength, inpainting with a full-ones mask, which is the
 txt2img identity, and a half mask, and a K=3 variation group sharing one
-prompt) on the ``sd_toy`` U-Net, with two runners: the continuous engine
-and the straight-line :func:`repro_torch.core.sampler.pas_denoise`
-reference.  The weights are passed in.
+prompt) on the ``sd_toy`` U-Net, with three runners: the continuous
+engine, the sharded engine and the straight-line
+:func:`repro_torch.core.sampler.pas_denoise` reference.  The weights are passed in.
 
 The constants are the JAX package's (``repro/serving/golden.py`` and
 ``scenarios.py``), so both packages build the same stream array for array.
@@ -27,6 +27,7 @@ from repro_torch.serving.engine import (
     DiffusionEngine,
     EngineConfig,
     GenRequest,
+    ShardedDiffusionEngine,
     resolve_kernels,
 )
 
@@ -129,6 +130,19 @@ def scenario_requests() -> list[tuple[str, GenRequest]]:
     return out
 
 
+def _serve(engine_cls, params, **config) -> dict[str, np.ndarray]:
+    """Serve the scenario stream through one engine -> {name: latent}."""
+    cfg = EngineConfig(
+        n_lanes=N_LANES, max_steps=MAX_STEPS, l_sketch=L_SKETCH, l_refine=L_REFINE,
+        decode_images=False, **config,
+    )
+    engine = engine_cls(UCFG, DCFG, params, None, cfg)
+    named = scenario_requests()
+    done, _ = engine.run([req for _, req in named])
+    by_rid = {d.rid: d.latent for d in done}
+    return {name: by_rid[req.rid] for name, req in named}
+
+
 def run_engine(
     params: dict[str, Any],
     *,
@@ -138,16 +152,22 @@ def run_engine(
     backend: str | None = None,
 ) -> dict[str, np.ndarray]:
     """Serve the scenario stream through the continuous engine -> {name: latent}."""
-    cfg = EngineConfig(
-        n_lanes=N_LANES, max_steps=MAX_STEPS, l_sketch=L_SKETCH, l_refine=L_REFINE,
-        decode_images=False, cache_mode=cache_mode, cache_threshold=cache_threshold,
-        device=device, backend=backend,
-    )
-    engine = DiffusionEngine(UCFG, DCFG, params, None, cfg)
-    named = scenario_requests()
-    done, _ = engine.run([req for _, req in named])
-    by_rid = {d.rid: d.latent for d in done}
-    return {name: by_rid[req.rid] for name, req in named}
+    return _serve(DiffusionEngine, params, cache_mode=cache_mode,
+                  cache_threshold=cache_threshold, device=device, backend=backend)
+
+
+def run_sharded_engine(
+    params: dict[str, Any],
+    *,
+    n_shards: int = 1,
+    cache_mode: str = "off",
+    cache_threshold: float = 0.0,
+    device: str = "cuda",
+    backend: str | None = None,
+) -> dict[str, np.ndarray]:
+    """Serve the scenario stream through the sharded engine -> {name: latent}."""
+    return _serve(ShardedDiffusionEngine, params, n_shards=n_shards, cache_mode=cache_mode,
+                  cache_threshold=cache_threshold, device=device, backend=backend)
 
 
 def run_straight_line(

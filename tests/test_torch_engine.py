@@ -124,11 +124,22 @@ def test_cpu_device_with_cuda_kernels_raises():
     assert EngineConfig().kernels == "cuda"
 
 
-@pytest.mark.parametrize("kw", [dict(n_shards=2)], ids=["sharded"])
-def test_engine_config_refuses_unported(kw):
-    """Only the sharded engine (and with it the sharded cache) is unported."""
-    with pytest.raises(ValueError, match="not yet ported"):
-        _engine_config(**kw)
+@pytest.mark.parametrize("shards", [0, 3], ids=["zero", "uneven"])
+def test_engine_config_rejects_bad_shards(shards):
+    """As ``repro``'s: at least one shard, and the lanes divide over them."""
+    with pytest.raises(ValueError, match="n_shards"):
+        EngineConfig(n_lanes=4, n_shards=shards, device="cpu")
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_make_serving_engine_routes_by_shards(weights, shards):
+    from repro_torch.serving.engine import ShardedDiffusionEngine, make_serving_engine
+
+    cfg = _engine_config(n_shards=shards)
+    eng = make_serving_engine(TOY, DiffusionConfig(**dataclasses.asdict(G.DCFG)), weights[1],
+                              None, cfg)
+    # one shard keeps the single-device engine itself
+    assert type(eng) is (DiffusionEngine if shards == 1 else ShardedDiffusionEngine)
 
 
 @pytest.mark.parametrize("mode", ["off", "intra", "cross"])
