@@ -101,7 +101,19 @@ version.  Phases:
    did not log held against its plain version and timed; ``python -m
    repro_torch.launch.serve --shards 2`` refused with ``repro``'s message
    on one card (or serving 3 requests on two); the sharded micro-step by
-   vote pair beside phase 6's single-device steps.
+   vote pair beside phase 6's single-device steps;
+11. train: ``repro_torch.launch.train.train_unet`` at sd_v14's full width
+   on the card (batch 2, 4 steps, a checkpoint every 2, on the ``eager``
+   backend under autograd: the kernels have no backward), each step's time
+   and the peak card memory; the newest checkpoint restored into a fresh
+   template bitwise the live state, and a second call resuming from step 4
+   to 6; one sd_toy step on the card against the same step on the CPU
+   (loss, parameters, m and v); the pipeline of
+   ``examples/torch_train_unet.py`` at sd_100m (train until the loss
+   falls, one more step with int8 gradient compression, restore, sample
+   all-FULL and PAS on ``cuda``, launches counted, and on ``eager``,
+   latents held against each other, the cosine and the MAC reduction);
+   every kernel wrapper refuses an operand that requires grad.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It prints the
 per-kernel JSON line, the card line and, last, the ``{"ok": true, ...}``
@@ -271,6 +283,22 @@ P10_SPILL_SLOTS = 6
 P10_COUNTERS = P6_COUNTERS + ("gossip_routed", "shard_mean_active", "shard_hit_rates")
 #: the vote pairs phase 10 times, by class (0 FULL, 1 SKETCH, 2 REFINE)
 P10_PAIRS = ((0, 0), (0, 1), (1, 1), (0, 2), (1, 2), (2, 2))
+#: phase 11 (a): sd_v14 training at batch 2, a checkpoint every 2 steps, then
+#: resumed to P11_RESUME; a checkpoint of params, m and v (float32) is 10.3 GB
+#: on disk and keep-2 holds up to three while the third is written
+P11_V14 = dict(unet=UNET, batch=2, steps=4, save_every=2, lr=3e-4)
+P11_RESUME = 6
+P11_DISK_BYTES = 3 * 3 * 4 * 860e6
+#: phase 11 (b), sd_toy card against CPU, as tests/test_torch_train.py holds
+#: the port against the JAX package in float32: the loss within 1e-5
+#: relative; m and v within 1e-4 of each leaf's largest value; parameters
+#: within 0.5 * lr absolute (Adam's first step moves an element by about
+#: lr * sign(g), so a float32 gradient difference moves an element whose |g|
+#: is near Adam's eps by a share of lr)
+P11_LOSS_TOL, P11_MV_TOL, P11_PARAM_TOL = 1e-5, 1e-4, 0.5
+#: phase 11 (c): the example's pipeline at sd_100m (the example's batch 8),
+#: this many steps, then one more with --compress-grads
+P11_STEPS, P11_BATCH = 60, 8
 
 
 def _phase(name: str, t0: float) -> float:
@@ -1753,6 +1781,210 @@ def _sharded_phase(torch, np, K, CFG, config, models, phase5, log, check_shape, 
     return detail
 
 
+def _train_phase(torch, np, K, t0):
+    """Phase 11 -> its detail.  Raises on the first failed check."""
+    import argparse
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.common.types import DiffusionConfig
+    from repro_torch.configs import get_unet_config
+    from repro_torch.data.pipeline import DataConfig, latent_batch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.fused_matmul.ops import fused_matmul
+    from repro_torch.kernels.stream_norm.ops import stream_group_norm, stream_norm
+    from repro_torch.kernels.uniconv.ops import uniconv
+    from repro_torch.launch import train as TT
+    from repro_torch.models import unet as U
+    from repro_torch.optim import AdamWConfig, init_adamw
+
+    detail: dict = {}
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+
+    # (a) sd_v14 at its full width
+    ckpt = build_dir / "p11_sd_v14_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    free = shutil.disk_usage(build_dir).free
+    print(f"[chip_smoke]   disk free under build/: {free / 1e9:.1f} GB (checkpoints need "
+          f"{P11_DISK_BYTES / 1e9:.1f} GB)")
+    if free < P11_DISK_BYTES:
+        raise AssertionError(f"phase 11: {free / 1e9:.1f} GB free, sd_v14 checkpoints need "
+                             f"{P11_DISK_BYTES / 1e9:.1f} GB")
+    args = argparse.Namespace(**P11_V14, seed=0, ckpt_dir=str(ckpt), log_every=1,
+                              compress_grads=False, device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what the earlier phases still hold
+    start = time.perf_counter()
+    res = TT.train_unet(args)
+    wall = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    state = res["state"]
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    steps_ms = [round(s * 1e3, 2) for s in res["step_s"]]
+    print(f"[chip_smoke]   sd_v14 train ({n_params / 1e6:.1f} M parameters, batch "
+          f"{args.batch}): steps {steps_ms} ms (host wall, loss read back), peak card memory "
+          f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held before), first loss {res['first_loss']:.5f}, mean "
+          f"{res['final_loss']:.5f}; {wall:.1f} s with init and 2 checkpoints")
+    cm = CheckpointManager(str(ckpt))
+    if not (np.isfinite(res["first_loss"]) and np.isfinite(res["final_loss"])):
+        raise AssertionError(f"phase 11: sd_v14 losses {res['first_loss']}, {res['final_loss']}")
+    if cm.list_steps() != [2, 4]:
+        raise AssertionError(f"phase 11: committed steps {cm.list_steps()}, want [2, 4]")
+    start = time.perf_counter()
+    fresh = U.init_unet(get_unet_config(UNET), torch.Generator(device="cuda").manual_seed(123))
+    step, restored = cm.restore_latest({"params": fresh, "opt": init_adamw(fresh)})
+    restore_s = time.perf_counter() - start
+    same = step == 4 and all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+                             for a, b in zip(tree_leaves(restored), tree_leaves(state)))
+    print(f"[chip_smoke]   restore_latest into a fresh template: step {step}, bitwise the "
+          f"live state: {same} ({restore_s:.1f} s)")
+    if not same:
+        raise AssertionError("phase 11: the restored sd_v14 state is not the live one")
+    detail["sd_v14"] = dict(n_params=n_params, step_ms=steps_ms, peak_bytes=peak, held_bytes=held,
+                            wall_s=wall,
+                            first_loss=res["first_loss"], final_loss=res["final_loss"],
+                            restore_s=restore_s)
+    del fresh, restored, state, res
+    torch.cuda.empty_cache()
+    res2 = TT.train_unet(argparse.Namespace(**{**vars(args), "steps": P11_RESUME}))
+    print(f"[chip_smoke]   resumed from step {res2['start_step']}: steps "
+          f"{[round(s * 1e3, 2) for s in res2['step_s']]} ms, loss {res2['final_loss']:.5f}; "
+          f"committed {cm.list_steps()}")
+    if (res2["start_step"], len(res2["step_s"]), cm.list_steps()) != (4, 2, [4, 6]) or not (
+            np.isfinite(res2["final_loss"])):
+        raise AssertionError(f"phase 11: the resumed run started at {res2['start_step']}, "
+                             f"committed {cm.list_steps()}")
+    detail["sd_v14"]["resumed_step_ms"] = [s * 1e3 for s in res2["step_s"]]
+    del res2
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = _phase("train sd_v14", t0)
+
+    # (b) one sd_toy step on the card against the same step on the CPU
+    toy = get_unet_config("sd_toy")
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=2, warmup_steps=1)
+    step_fn = TT.make_unet_train_step(toy, DiffusionConfig(), opt_cfg)
+    nb = latent_batch(DataConfig(global_batch=2, seq_len=0, vocab_size=8), 0,
+                      size=toy.latent_size)
+    # prompt embeddings, not the one-hot class rows: with one row repeated over
+    # the context, cross attention's q / k gradients are 0 up to float32 noise,
+    # which Adam scales to +-lr on either device
+    ctx = torch.randn((2, toy.ctx_len, toy.ctx_dim), generator=torch.Generator().manual_seed(2))
+    batch = {"latents": torch.from_numpy(nb["latents"]), "ctx": ctx * 0.5}
+    draws = TT.draw_noise(DiffusionConfig(), torch.Generator().manual_seed(1), batch["latents"])
+    cpu_params = U.init_unet(toy, torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda x: x.to(dev), cpu_params)
+        p, opt, _, loss = step_fn(params, init_adamw(params), None,
+                                  tree_map(lambda x: x.to(dev), batch),
+                                  *(x.to(dev) for x in draws))
+        out[dev] = (float(loss), *(
+            [x.cpu() for x in tree_leaves(tree)] for tree in (p, opt.m, opt.v)))
+    (loss_c, p_c, m_c, v_c), (loss_g, p_g, m_g, v_g) = out["cpu"], out["cuda"]
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    param_err = max(float((a - b).abs().max()) for a, b in zip(p_g, p_c)) / opt_cfg.lr
+    mv_err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                 for xs, ys in ((m_g, m_c), (v_g, v_c)) for a, b in zip(xs, ys))
+    print(f"[chip_smoke]   sd_toy step, cuda vs cpu: loss {loss_g:.7f} vs {loss_c:.7f} (rel "
+          f"{loss_err:.3g}, tol {P11_LOSS_TOL}); parameters max |d| {param_err:.3g} lr (tol "
+          f"{P11_PARAM_TOL}); m, v max |d| {mv_err:.3g} of the leaf's max (tol {P11_MV_TOL})")
+    detail["toy_step"] = dict(loss_rel=loss_err, param_err_lr=param_err, mv_err=mv_err)
+    if not (loss_err <= P11_LOSS_TOL and param_err <= P11_PARAM_TOL and mv_err <= P11_MV_TOL):
+        raise AssertionError("phase 11: the sd_toy step on the card differs from the CPU's")
+    t0 = _phase("train sd_toy card vs cpu", t0)
+
+    # (c) the example's pipeline at sd_100m
+    ex = _example("torch_train_unet")
+    ucfg = get_unet_config("sd_100m")
+    ckpt = build_dir / "p11_sd_100m_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = argparse.Namespace(unet="sd_100m", steps=P11_STEPS, batch=P11_BATCH,
+                              ckpt_dir=str(ckpt), save_every=P11_STEPS // 2,
+                              compress_grads=False, device="cuda")
+    start = time.perf_counter()
+    res = ex.train(args)  # exits unless the loss fell
+    train_s = time.perf_counter() - start
+    comp = TT.train_unet(argparse.Namespace(
+        **{**vars(args), "steps": P11_STEPS + 1, "save_every": P11_STEPS + 1,
+           "compress_grads": True}, lr=2e-4, seed=0, log_every=1))
+    step, params = ex.restore(ucfg, str(ckpt), "cuda")
+    sd100_ms = sorted(s * 1e3 for s in res["step_s"])
+    print(f"[chip_smoke]   sd_100m: {P11_STEPS} steps at batch {P11_BATCH} in {train_s:.1f} s "
+          f"(median step {sd100_ms[len(sd100_ms) // 2]:.2f} ms), loss {res['first_loss']:.4f} -> "
+          f"{res['final_loss']:.4f} (mean of the last 10); one step with int8 compression, "
+          f"loss {comp['final_loss']:.4f}; restored step {step}")
+    if step != P11_STEPS + 1 or comp["start_step"] != P11_STEPS or not np.isfinite(
+            comp["final_loss"]):
+        raise AssertionError(f"phase 11: compressed step from {comp['start_step']}, restored "
+                             f"step {step}")
+    lat, launches = {}, None
+    for backend in ("cuda", "eager"):
+        K.reset_launch_counts()
+        start = time.perf_counter()
+        lat[backend] = ex.sample(ucfg, params, "cuda", backend)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        if backend == "cuda":
+            launches = K.launch_counts()
+        print(f"[chip_smoke]   sample {backend} (all-FULL and PAS, {ex.SAMPLE_STEPS} steps): "
+              f"{secs:.2f} s" + (f"; launches {launches}" if backend == "cuda" else ""))
+    if any(launches[name] <= 0 for name in SOURCES):
+        raise AssertionError(f"phase 11: a kernel of the sampling path never launched: {launches}")
+    scale = max(1.0, max(float(x.abs().max()) for x in lat["eager"]))
+    err = max(float((a - b).abs().max()) for a, b in zip(lat["cuda"], lat["eager"]))
+    from repro_torch.core import framework as FW
+    from repro_torch.core.metrics import latent_cosine
+
+    full, pas = lat["cuda"]
+    cos, red = latent_cosine(pas, full), FW.mac_reduction(ucfg, ex.PLAN, ex.SAMPLE_STEPS)
+    print(f"[chip_smoke]   latents cuda vs eager: max |d| {err:.3g} on max |latent| {scale:.3g} "
+          f"(tol {SERVE_TOL * scale:.3g}); PAS vs full cosine {cos:.4f}, MAC reduction "
+          f"{red:.2f}x")
+    if not err <= SERVE_TOL * scale:
+        raise AssertionError(f"phase 11: cuda latents differ from eager by {err}")
+    if not all(bool(torch.isfinite(x).all()) for x in (*lat["cuda"], *lat["eager"])):
+        raise AssertionError("phase 11: sampled latents are not finite")
+    detail["sd_100m"] = dict(steps=P11_STEPS, batch=P11_BATCH, train_s=train_s,
+                             step_ms=[s * 1e3 for s in res["step_s"]],
+                             first_loss=res["first_loss"], final_loss=res["final_loss"],
+                             compressed_loss=comp["final_loss"], launches=launches,
+                             latent_err=err, latent_scale=scale, cosine=cos, mac_reduction=red)
+    del params, lat, comp, res
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = _phase("train the example's pipeline", t0)
+
+    # (d) the grad guard on the card
+    w = torch.randn((9, 8, 8), device="cuda", requires_grad=True)
+    x = torch.randn((1, 16, 8), device="cuda")
+    calls = {
+        "uniconv": lambda: uniconv(x, w, None, (4, 4), 3),
+        "stream_norm": lambda: stream_norm(x, w[0, 0]),
+        "stream_group_norm": lambda: stream_group_norm(x, w[0, 0], w[0, 1], groups=2),
+        "flash_attention": lambda: flash_attention(w[:1, None, :4, :8], x[:, None], x[:, None]),
+        "fused_matmul": lambda: fused_matmul(x[0], w[0]),
+    }
+    refused = []
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" in str(e):
+                refused.append(name)
+                continue
+            raise
+    print(f"[chip_smoke]   grad guard: refused an operand that requires grad: {refused}")
+    if refused != list(calls):
+        raise AssertionError(f"phase 11: only {refused} refused an operand that requires grad")
+    detail["grad_guard"] = refused
+    _phase("train grad guard", t0)
+    return detail
+
+
 def main() -> int:
     try:
         import torch
@@ -2025,6 +2257,9 @@ def main() -> int:
         torch, np, K, CFG, config, models, (requests, done_c), log,
         lambda key: _check_shape(torch, F, ops, key, gen), detail["serve_cached"]["micro_ms"],
         time.perf_counter())
+
+    # 11. train ----------------------------------------------------------------------------------
+    detail["train"] = _train_phase(torch, np, K, time.perf_counter())
 
     kernels = [
         _kernel_entry(name, src, rep, launches[name], totals[name])

@@ -1,11 +1,14 @@
-"""Weights carried across from the JAX package's parameter trees.
+"""Weights and state carried across from the JAX package's trees.
 
-The JAX package keeps its parameters as nested dicts and lists of arrays;
-mapped through ``np.asarray`` they become the input here.  The layouts stay
-as they are (conv ``[K*K, Cin, Cout]``, dense ``[in, out]``), so each JAX op
-maps to one torch op.  Every leaf becomes a float32 tensor: a bfloat16 leaf
-is upcast exactly, which is what the JAX path computes with when it
-promotes ``fp32 @ bf16`` to float32.
+The JAX package keeps its parameters as nested dicts and lists of arrays,
+and its optimizer state as named tuples of such trees; mapped through
+``np.asarray`` they become the input here.  The layouts stay as they are
+(conv ``[K*K, Cin, Cout]``, dense ``[in, out]``), so each JAX op maps to
+one torch op.  Every floating leaf becomes a float32 tensor: a bfloat16
+leaf is upcast exactly, which is what the JAX path computes with when it
+promotes ``fp32 @ bf16`` to float32.  Integer leaves (AdamW's step) keep
+their dtype.  A named tuple keeps its type, so its fields stay readable by
+name.
 """
 from __future__ import annotations
 
@@ -14,14 +17,26 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.common.tree import tree_map
+
+
+def _leaf_to_torch(leaf: Any, device) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    arr = arr.astype(arr.dtype if arr.dtype.kind == "i" else np.float32)  # a copy
+    return torch.from_numpy(arr).to(device)
+
 
 def tree_to_torch(tree: Any, device="cpu") -> Any:
-    """Nested dicts/lists/tuples of numpy arrays -> the same tree of float32 tensors."""
-    if isinstance(tree, dict):
-        return {k: tree_to_torch(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_to_torch(v, device) for v in tree)
-    return torch.from_numpy(np.asarray(tree).astype(np.float32)).to(device)
+    """Nested dicts/lists/tuples/named tuples of numpy arrays -> the same
+    tree of tensors (float32, or the leaf's integer dtype)."""
+    return tree_map(lambda leaf: _leaf_to_torch(leaf, device), tree)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """The port's tree of tensors -> the same tree of numpy arrays (float32
+    for every floating tensor), for the JAX package to take back."""
+    return tree_map(lambda t: t.detach().float().cpu().numpy() if t.is_floating_point()
+                    else t.detach().cpu().numpy(), tree)
 
 
 def unet_params_from_numpy(tree: Any, device="cpu") -> Any:

@@ -161,6 +161,19 @@ def launch(fn: str, device: torch.device, *args) -> None:
         check(fn, get(fn)(*args, stream_ptr(device)))
 
 
+def forbid_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need a backward of the kernel ``name``:
+    under grad mode, on an operand that requires grad.  A kernel launched by
+    ``data_ptr`` returns a tensor with no graph, so every weight behind it
+    would lose its gradient without a word.  Called before a wrapper's CPU
+    branch, so the CPU shows the refusal too."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward and an operand requires grad; "
+            "differentiate the 'eager' backend, or call the kernel under torch.no_grad()"
+        )
+
+
 def require_cuda(name: str, *tensors, dtypes=(torch.float32,)) -> None:
     """Wrapper-side checks: device, dtype (one of ``dtypes``) and contiguity
     of kernel operands."""

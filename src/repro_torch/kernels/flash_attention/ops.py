@@ -81,6 +81,7 @@ def flash_attention(
     ``q`` is [B, H, Sq, Dh]; ``k``/``v`` are [B, Hkv, Skv, Dh] with
     ``H % Hkv == 0``.  ``causal``/``window`` assume aligned positions.
     """
+    build.forbid_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     bsz, h, sq, dh = q.shape

@@ -97,6 +97,7 @@ def fused_matmul(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The fused product through the Hopper kernel (plain version on a CPU tensor)."""
     _check_epilogue(epilogue)
+    build.forbid_grad("fused_matmul", a, b, bias)
     if a.device.type == "cpu":
         return fused_matmul_plain(a, b, bias, epilogue=epilogue, with_stats=with_stats)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0] or 0 in (*a.shape, b.shape[1]):

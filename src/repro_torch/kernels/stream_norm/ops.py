@@ -83,6 +83,7 @@ def stream_norm(
     """Row layer/rms norm through the Hopper kernel (plain version on a CPU tensor)."""
     if mode not in MODES:
         raise ValueError(f"stream_norm: mode {mode!r}, expected one of {list(MODES)}")
+    build.forbid_grad("stream_norm", x, scale, bias)
     if x.device.type == "cpu":
         return stream_norm_plain(x, scale, bias, mode=mode, eps=eps)
     if (x.dim() == 0 or x.numel() == 0 or scale.shape != x.shape[-1:]
@@ -229,6 +230,7 @@ def stream_group_norm(
     eps: float = 1e-5, silu: bool = False,
 ) -> torch.Tensor:
     """Group norm (+ SiLU) through the Hopper kernel (plain version on a CPU tensor)."""
+    build.forbid_grad("stream_group_norm", x, scale, bias)
     if x.device.type == "cpu":
         return stream_group_norm_plain(x, scale, bias, groups=groups, eps=eps, silu=silu)
     bsz, l, c = x.shape

@@ -212,6 +212,7 @@ def uniconv(
     stride: int = 1,
 ) -> torch.Tensor:
     """Uni-conv through the Hopper kernel (the plain version on a CPU tensor)."""
+    build.forbid_grad("uniconv", x, w, b)
     if x.device.type == "cpu":
         return uniconv_plain(x, w, b, hw, ksize, stride)
     h, wdim = hw

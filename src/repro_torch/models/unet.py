@@ -34,6 +34,8 @@ def _round_to(t: torch.Tensor, dtype: str) -> torch.Tensor:
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype: str) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, device=gen.device)
     t = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32) * std
     return _round_to(t, dtype)
 
@@ -215,6 +217,32 @@ def init_unet(cfg: UNetConfig, generator: torch.Generator) -> Params:
             params["up"].append(blk)
             ch_up = cout
     return params
+
+
+class _Shapes:
+    """Stands in for the generator of :func:`init_unet`, which then builds
+    the tree on the meta device: shapes, no storage and no draws."""
+
+    device = torch.device("meta")
+
+
+def param_dtypes(cfg: UNetConfig) -> Params:
+    """The JAX package's dtype of every leaf, in a tree of the parameter
+    tree's shape: the group norm and layer norm scales and biases are
+    float32; every conv, dense and attention weight and its bias is
+    ``cfg.dtype``.  The port holds every leaf as float32, so its training
+    step rounds a bfloat16 leaf's gradient and updated value to bfloat16,
+    as the JAX package's gradient and cast-back do."""
+    low = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def walk(tree, norm: bool = False):
+        if isinstance(tree, dict):
+            return {k: walk(v, set(tree) == {"scale", "bias"}) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return torch.float32 if norm else low
+
+    return walk(init_unet(cfg, _Shapes()))
 
 
 def n_up_steps(cfg: UNetConfig) -> int:

@@ -1,14 +1,16 @@
-"""Small convolutional VAE decoder, pixels from latents.
+"""Small convolutional VAE: pixels <-> latents.
 
-Port of the decoder half of ``repro/models/vae.py``: the same tree and the
-same (L, C) layout, with every conv and the group norm routed through a
-:class:`~repro_torch.models.backend.KernelBackend`.  ``vae_encode`` is not
-ported yet (the served txt2img path only decodes).
+Port of ``repro/models/vae.py``: the same tree and the same (L, C) layout.
+The decoder routes every conv and the group norm through a
+:class:`~repro_torch.models.backend.KernelBackend`; the encoder uses the
+plain ops, as the JAX package's does (it has no ``backend`` argument).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.stream_norm.ops import group_norm
+from repro_torch.kernels.uniconv.ops import uniconv_apply
 from repro_torch.models.backend import resolve_backend
 from repro_torch.models.unet import Params, _silu, _upsample2x, init_conv, init_gn
 
@@ -16,8 +18,7 @@ from repro_torch.models.unet import Params, _silu, _upsample2x, init_conv, init_
 def init_vae(
     generator: torch.Generator, *, img_channels: int = 3, latent_channels: int = 4, base: int = 32
 ) -> Params:
-    """Random float32 weights with the JAX tree's shapes and scales (the
-    encoder leaves are kept so the tree matches, though only the decoder runs)."""
+    """Random float32 weights with the JAX tree's shapes and scales."""
     g, f = generator, "float32"
     return {
         "enc": [
@@ -37,6 +38,21 @@ def init_vae(
         "dec_gn": init_gn(g, base),
         "dec_out": init_conv(g, 3, base, img_channels, f),
     }
+
+
+def vae_encode(p: Params, img: torch.Tensor, hw) -> tuple[torch.Tensor, torch.Tensor]:
+    """img: [B, H*W, C]. Returns (mu, logvar) at H/4 x W/4."""
+    h = img
+    cur = hw
+    for conv, s in zip(p["enc"], (1, 2, 1, 2)):
+        h = uniconv_apply(conv["w"], conv["b"], h, cur, 3, stride=s)
+        if s == 2:
+            cur = (cur[0] // 2, cur[1] // 2)
+        h = _silu(h)
+    h = group_norm(h, p["enc_gn"], 8)
+    out = uniconv_apply(p["enc_out"]["w"], p["enc_out"]["b"], h, cur, 1)
+    mu, logvar = torch.chunk(out, 2, dim=-1)
+    return mu, logvar
 
 
 def vae_decode(p: Params, z: torch.Tensor, hw, backend=None) -> torch.Tensor:

@@ -1,17 +1,32 @@
-"""Restart supervision primitives of the replica router.
+"""Fault-tolerant training loop scaffolding and restart supervision.
 
-The port's own copy of the two pieces of ``repro/runtime/fault_tolerance.py``
-that the router uses:
+The port's own copy of ``repro/runtime/fault_tolerance.py``:
 
 * ``StragglerDetector``: EWMA of per-step wall time; flags steps slower
-  than ``threshold x`` the moving mean.  The router feeds it health-probe
-  round trips, so a degraded replica shows in ``/stats`` before it fails.
+  than ``threshold x`` the moving mean.  The trainer logs the flagged
+  steps; the router feeds it health-probe round trips, so a degraded
+  replica shows in ``/stats`` before it fails.
 * ``RestartBackoff``: deterministic exponential backoff for restart
   supervision (replica respawn, retry loops); resettable on recovery.
+* ``PreemptionGuard``: SIGTERM handler; the loop checkpoints and exits
+  cleanly inside the eviction grace window.
+* ``FaultTolerantLoop``: checkpoint cadence + auto-resume + straggler
+  logging wrapped around any step function.
+* ``ElasticPlan``: given a failed device count, choose the largest
+  runnable (data, model) sub-mesh and the batch re-sharding.
 
-Stdlib only: the router runs it in a process that never builds an engine.
+Stdlib only (the checkpoint import is type-only): the router runs this
+module in a process that never loads torch.
 """
 from __future__ import annotations
+
+import dataclasses
+import signal
+import time
+from typing import TYPE_CHECKING, Any, Callable
+
+if TYPE_CHECKING:
+    from repro_torch.checkpoint.manager import CheckpointManager
 
 
 class StragglerDetector:
@@ -68,3 +83,83 @@ class RestartBackoff:
 
     def reset(self) -> None:
         self.failures = 0
+
+
+class PreemptionGuard:
+    """SIGTERM-aware flag; ``requested`` flips when eviction is signaled."""
+
+    def __init__(self, install: bool = True):
+        self.requested = False
+        if install:
+            try:
+                signal.signal(signal.SIGTERM, self._handler)
+            except ValueError:
+                pass  # non-main thread (tests)
+
+    def _handler(self, signum, frame):
+        self.requested = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    """Re-mesh decision after losing ``failed`` chips from (data x model)."""
+
+    old_data: int
+    old_model: int
+    new_data: int
+    new_model: int
+    new_global_batch: int  # trimmed so it shards evenly over new_data
+    batch_per_data_shard: int
+
+    @staticmethod
+    def plan(data: int, model: int, failed: int, global_batch: int) -> "ElasticPlan":
+        # model-parallel groups are the atomic unit: losing any chip kills
+        # its whole TP group, so we drop ceil(failed / model) data rows.
+        # We KEEP every healthy row and trim the global batch to the
+        # largest multiple of new_data instead of dropping healthy rows
+        # until the old batch divides (which can waste ~half the fleet).
+        lost_rows = -(-failed // model)
+        new_data = data - lost_rows
+        if new_data < 1:
+            raise RuntimeError("not enough healthy rows to continue")
+        per_shard = global_batch // new_data
+        if per_shard < 1:
+            raise RuntimeError("global batch smaller than the surviving mesh")
+        new_batch = per_shard * new_data
+        return ElasticPlan(data, model, new_data, model, new_batch, per_shard)
+
+
+@dataclasses.dataclass
+class FaultTolerantLoop:
+    ckpt: CheckpointManager
+    save_every: int = 100
+    max_steps: int = 1000
+    straggler: StragglerDetector = dataclasses.field(default_factory=StragglerDetector)
+
+    def run(
+        self,
+        state: Any,
+        step_fn: Callable[[Any, int], Any],
+        *,
+        guard: PreemptionGuard | None = None,
+        log: Callable[[str], None] = print,
+    ) -> Any:
+        guard = guard or PreemptionGuard(install=False)
+        start = 0
+        restored = self.ckpt.restore_latest(state)
+        if restored is not None:
+            start, state = restored
+            log(f"[ft] resumed from step {start}")
+        for step in range(start, self.max_steps):
+            t0 = time.perf_counter()
+            state = step_fn(state, step)
+            dt = time.perf_counter() - t0
+            if self.straggler.observe(step, dt):
+                log(f"[ft] straggler at step {step}: {dt:.3f}s vs mean {self.straggler.mean:.3f}s")
+            if guard.requested:
+                self.ckpt.save(step + 1, state, extra={"preempted": True})
+                log(f"[ft] preempted; checkpointed step {step + 1}")
+                return state
+            if (step + 1) % self.save_every == 0:
+                self.ckpt.save(step + 1, state)
+        return state

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.sharding import lane_devices, resolve_device
+from repro_torch.common.tree import tree_map
 from repro_torch.common.types import DiffusionConfig, PASPlan, UNetConfig
 from repro_torch.core import sampler as SM
 from repro_torch.models import diffusion as D
@@ -126,14 +127,6 @@ class CompletedRequest:
     @property
     def queue_wait_s(self) -> float:
         return self.admitted_s - self.submitted_s
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 def _tree_device(tree) -> torch.device:
@@ -755,7 +748,7 @@ class ShardedDiffusionEngine(DiffusionEngine):
         #: the U-Net weights on each distinct device (the caller's own tree
         #: where it already lies, so its uniconv weight preparation is shared)
         self._params_on = {
-            dev: params if dev == home else _tree_map(lambda t, d=dev: t.to(d), params)
+            dev: params if dev == home else tree_map(lambda t, d=dev: t.to(d), params)
             for dev in dict.fromkeys(self.devices)
         }
         self.cache: ShardedFeatureCache | None = None

@@ -28,6 +28,16 @@ E_SK, E_RF = N_UP - 3, N_UP - 2
 META = ("bucket", "rid", "sig", "valid", "last_use", "offset", "gen")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the CPU, and torch's
+    spinning thread pool slows a crowded worker many times over."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _pair(**kw):
     kw = dict(dict(n_slots=3, threshold=0.2, t_bucket=100, mode="cross"), **kw)
     return (JC.FeatureCache(TOY, E_SK, E_RF, **kw),

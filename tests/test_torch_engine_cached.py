@@ -119,11 +119,17 @@ def _jax_run(name, jparams):
     return _JAX_RUNS[name]
 
 
-def _port_run(name, tparams, **over):
-    cfg = EngineConfig(device="cpu", **BASE, **dict(STREAMS[name], **over))
-    eng = DiffusionEngine(TOY, DiffusionConfig(timesteps_sample=6), tparams, None, cfg)
-    done, summary = eng.run(_stream(name, jax_side=False))
-    return {d.rid: d.latent for d in done}, summary
+_PORT_RUNS: dict = {}
+
+
+def _port_run(name, tparams):
+    """Each port stream runs once per module, as its JAX twin does."""
+    if name not in _PORT_RUNS:
+        cfg = EngineConfig(device="cpu", **BASE, **STREAMS[name])
+        eng = DiffusionEngine(TOY, DiffusionConfig(timesteps_sample=6), tparams, None, cfg)
+        done, summary = eng.run(_stream(name, jax_side=False))
+        _PORT_RUNS[name] = ({d.rid: d.latent for d in done}, summary)
+    return _PORT_RUNS[name]
 
 
 @pytest.mark.parametrize("name", list(STREAMS))

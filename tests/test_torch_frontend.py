@@ -541,7 +541,8 @@ def test_http_engine_failure_errors_open_streams_and_stops_the_server(engine):
 
 
 def _env() -> dict:
-    env = dict(os.environ)
+    # one thread a process: a multi-threaded torch in a crowded test worker spins
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = "src" + os.pathsep + env.get("PYTHONPATH", "")
     return env
 

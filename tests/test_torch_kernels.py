@@ -36,6 +36,16 @@ ATTN_LC = [(256, 32), (64, 64)]
 GROUPS = 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the CPU, and torch's
+    spinning thread pool slows a crowded worker many times over."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _hw(length: int) -> tuple[int, int]:
     side = int(round(length**0.5))
     return side, side

@@ -35,6 +35,16 @@ MATMUL_CASES = [(128, 256, 64), (96, 160, 224)]
 EPILOGUES = ["none", "bias", "gelu", "silu"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the CPU, and torch's
+    spinning thread pool slows a crowded worker many times over."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
 

@@ -59,6 +59,16 @@ MATMUL_CASES = [
 REG_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the CPU, and torch's
+    spinning thread pool slows a crowded worker many times over."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def test_served_group_norms_are_one_full_step():
     assert sum(SERVED_GROUP_NORMS.values()) == 61
 

@@ -72,6 +72,16 @@ def _env() -> dict:
     return env
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the CPU, and torch's
+    spinning thread pool slows a crowded worker many times over."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _factory(engine_config: EngineConfig) -> RequestFactory:
     return RequestFactory(TOY, DiffusionConfig(timesteps_sample=engine_config.max_steps),
                           engine_config)

@@ -172,6 +172,9 @@ def _plain(o):
 
 TOY = get_unet_config("sd_toy")
 DCFG = DiffusionConfig(**dataclasses.asdict(G.DCFG))
+#: the reference subprocess's limit: it takes about 50 s alone and 95 s
+#: beside five other test workers
+REF_TIMEOUT_S = 360
 
 
 def two_device_env(src: str) -> dict:
@@ -206,7 +209,7 @@ def ref(tmp_path_factory):
     npz, js = str(d / "ref.npz"), str(d / "ref.json")
     out = subprocess.run([sys.executable, os.path.abspath(__file__), npz, js],
                          env=two_device_env(os.path.join(REPO, "src")),
-                         cwd=REPO, capture_output=True, text=True, timeout=600)
+                         cwd=REPO, capture_output=True, text=True, timeout=REF_TIMEOUT_S)
     assert out.returncode == 0, out.stderr[-3000:]
     with open(js) as f:
         return dict(np.load(npz)), json.load(f)
@@ -409,11 +412,12 @@ def test_build_engine_builds_the_sharded_engine_on_the_cpu(params):
 
 
 def _serve(*flags):
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    # one thread: a multi-threaded torch in a crowded test worker spins
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu", "--requests", "3",
          "--batch", "2", "--timesteps", "4", "--shards", "2", *flags],
-        capture_output=True, text=True, timeout=300, env=env, cwd=REPO,
+        capture_output=True, text=True, timeout=120, env=env, cwd=REPO,
     )
 
 

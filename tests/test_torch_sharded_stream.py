@@ -127,7 +127,7 @@ def runs(tmp_path_factory):
     npz, js = str(d / "ref.npz"), str(d / "ref.json")
     out = subprocess.run([sys.executable, __file__, npz, js],
                          env=two_device_env(str(REPO / "src")), cwd=REPO,
-                         capture_output=True, text=True, timeout=600)
+                         capture_output=True, text=True, timeout=360)  # ~90 s in the suite
     assert out.returncode == 0, out.stderr[-3000:]
     with open(js) as f:
         ref = json.load(f)
