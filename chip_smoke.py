@@ -113,7 +113,25 @@ version.  Phases:
    falls, one more step with int8 gradient compression, restore, sample
    all-FULL and PAS on ``cuda``, launches counted, and on ``eager``,
    latents held against each other, the cosine and the MAC reduction);
-   every kernel wrapper refuses an operand that requires grad.
+   every kernel wrapper refuses an operand that requires grad;
+12. the LM transformer family (no kernel of ``KERNEL_REGISTRY`` runs on
+   it, as no Pallas kernel runs on the reference's LM path; the phase
+   fails if one launched): (a) every transformer-family SMOKE arch
+   (random weights from a seed) on the card against the same weights on
+   the CPU, TF32 off: forward logits, aux loss, one train step's loss and
+   16 teacher-forced decode steps' logits within 1e-4 relative; (b)
+   ``python -m repro_torch.launch.train --mode lm --arch yi-6b`` (SMOKE,
+   20 steps, a checkpoint every 10) as a subprocess, the mean of its last
+   5 losses below its first, then a second run resuming from step 20 to
+   30; (c) ``python -m repro_torch.launch.serve --mode lm --arch
+   gemma3-1b --requests 4`` as a subprocess; (d) gemma3-1b at its full
+   width (1.0 B parameters, bf16, random init): a 1 x 4096 forward (the
+   chunked attention branch, q_chunk 512), a batch-4 prefill of 512
+   tokens, ``greedy_generate`` over that prompt and 64 generated tokens
+   (the 512-slot local rings wrap), every decode step's logits against
+   the forward's over the same 576 positions within 5e-2 of max |logit|
+   with the argmax agreement printed, then ``train_lm`` at batch 2 x 1024
+   for 6 steps: each step's time and the peak card memory.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It prints the
 per-kernel JSON line, the card line and, last, the ``{"ok": true, ...}``
@@ -299,6 +317,28 @@ P11_LOSS_TOL, P11_MV_TOL, P11_PARAM_TOL = 1e-5, 1e-4, 0.5
 #: phase 11 (c): the example's pipeline at sd_100m (the example's batch 8),
 #: this many steps, then one more with --compress-grads
 P11_STEPS, P11_BATCH = 60, 8
+#: phase 12 (a): every transformer-family SMOKE arch on the card against the
+#: CPU, TF32 off: logits relative to max |CPU logit|, aux and loss relative
+P12_B, P12_S, P12_TOL = 2, 16, 1e-4
+#: phase 12 (b): the LM trainer as a user starts it, then its resume; lr
+#: 3e-3 so that 20 steps visibly lower the loss
+P12_TRAIN = "repro_torch.launch.train"
+P12_CKPT = "build/p12_lm_ckpt"
+P12_TRAIN_ARGS = ["--mode", "lm", "--arch", "yi-6b", "--variant", "smoke", "--batch", "2",
+                  "--seq", "16", "--lr", "3e-3", "--ckpt-dir", P12_CKPT, "--save-every", "10",
+                  "--log-every", "1"]
+P12_STEPS, P12_RESUME = 20, 30
+#: phase 12 (c): the LM server as a user starts it
+P12_SERVE_ARGS = ["--mode", "lm", "--arch", "gemma3-1b", "--requests", "4"]
+#: phase 12 (d): gemma3-1b at its full width, bf16: a 4k forward (the
+#: chunked attention branch), a batch-4 prefill of 512 tokens then 64
+#: greedy decode steps (the 512-token local rings wrap), teacher-forced
+#: decode against forward within 5e-2 of max |logit|, then the trainer
+P12_FULL = "gemma3-1b"
+P12_LONG, P12_PROMPT, P12_BATCH, P12_GEN = 4096, 512, 4, 64
+P12_DECODE_TOL = 5e-2
+P12_FULL_TRAIN_ARGS = ["--mode", "lm", "--arch", P12_FULL, "--variant", "full", "--batch", "2",
+                       "--seq", "1024", "--steps", "6", "--log-every", "1", "--no-sigterm"]
 
 
 def _phase(name: str, t0: float) -> float:
@@ -1985,6 +2025,289 @@ def _train_phase(torch, np, K, t0):
     return detail
 
 
+def _run_cli(cmd: list[str], name: str, timeout: float) -> str:
+    """Run ``cmd`` from the repository root (output kept in
+    ``chiprun_out/<name>.{out,err}``); its stdout, or raise."""
+    import os
+
+    out = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)),
+                         capture_output=True, text=True, timeout=timeout)
+    logs = ROOT / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    (logs / f"{name}.out").write_text(out.stdout)
+    (logs / f"{name}.err").write_text(out.stderr)
+    if out.returncode != 0:
+        raise AssertionError(f"phase 12: {' '.join(cmd[1:])} exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    return out.stdout
+
+
+def _train_losses(stdout: str) -> dict[int, float]:
+    import re
+
+    return {int(m[0]): float(m[1]) for m in re.findall(r"\[train\] step=(\d+) loss=(\S+)", stdout)}
+
+
+def _lm_smoke_archs(torch, np, t0) -> dict:
+    """Phase 12 (a): every transformer-family SMOKE arch, card against CPU."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import ARCH_IDS, get_lm_config
+    from repro_torch.launch.steps import RECURRENT_FAMILIES, get_adapter, make_train_step
+    from repro_torch.optim import AdamWConfig, init_adamw
+
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_lm_config(arch, "smoke")
+        if cfg.family in RECURRENT_FAMILIES:
+            continue
+        ad = get_adapter(cfg)
+        rng = np.random.default_rng(12)
+        x = (rng.normal(size=(P12_B, P12_S, cfg.d_model)).astype(np.float32) if cfg.frontend_stub
+             else rng.integers(0, cfg.vocab_size, size=(P12_B, P12_S)).astype(np.int32))
+        lshape = (P12_B, P12_S) + ((cfg.n_codebooks,) if cfg.n_codebooks > 1 else ())
+        labels = rng.integers(0, cfg.vocab_size, size=lshape).astype(np.int32)
+        toks = rng.integers(0, cfg.vocab_size, size=(P12_B, P12_S)).astype(np.int32)
+        cpu_params = ad.init(torch.Generator().manual_seed(0), "cpu")
+        res = {}
+        for dev in ("cpu", "cuda"):
+            params = tree_map(lambda t: t.to(dev), cpu_params)
+            with torch.no_grad():
+                logits, aux = ad.forward(params, torch.from_numpy(x).to(dev))
+                cache, steps, tok = ad.init_cache(P12_B, P12_S, dev), [], torch.from_numpy(toks)
+                for pos in range(P12_S):
+                    lg, cache = ad.decode(params, cache, tok[:, pos].to(dev), pos)
+                    steps.append(lg)
+            step = make_train_step(ad, AdamWConfig(lr=1e-3, total_steps=10, warmup_steps=1),
+                                   remat=False)
+            batch = {"inputs": torch.from_numpy(x).to(dev),
+                     "labels": torch.from_numpy(labels).to(dev)}
+            _, _, loss = step(params, init_adamw(params), batch)
+            res[dev] = (logits.float().cpu(), float(aux), torch.stack(steps, 1).float().cpu(),
+                        float(loss))
+        (lc, ac, dc, sc), (lg_, ag, dg, sg) = res["cpu"], res["cuda"]
+        errs = dict(
+            logits=float((lg_ - lc).abs().max() / lc.abs().max()),
+            aux=abs(ag - ac) / max(abs(ac), 1e-30) if cfg.moe is not None else abs(ag - ac),
+            decode=float((dg - dc).abs().max() / dc.abs().max()),
+            loss=abs(sg - sc) / abs(sc),
+        )
+        print(f"[chip_smoke]   {arch} SMOKE cuda vs cpu (rel): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()) + f"; loss {sg:.5f}, aux {ag:.5f}")
+        if not all(np.isfinite(v) and v <= P12_TOL for v in errs.values()):
+            raise AssertionError(f"phase 12: {arch} on the card differs from the CPU: {errs}")
+        out[arch] = errs
+    _phase("lm SMOKE archs card vs cpu", t0)
+    return out
+
+
+def _device_busy(torch, fn) -> dict:
+    """One call of ``fn`` (after a warm one) traced by torch.profiler: the
+    device activities the card ran (kernels, copies, fills), their summed
+    device time, and the call's host wall time (traced, synchronised)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    acts = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in acts) / 1e3
+    return dict(device_ops=len(acts), busy_ms=busy_ms, wall_ms=wall_ms,
+                idle_share=1 - busy_ms / wall_ms if acts else None)
+
+
+def _lm_full(torch, np, t0) -> dict:
+    """Phase 12 (d): gemma3-1b at its full width from a random init."""
+    import argparse
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import get_lm_config
+    from repro_torch.launch import serve as TS
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.steps import get_adapter, make_prefill_step
+    from repro_torch.models.attention import adaptive_q_chunk
+
+    cfg = get_lm_config(P12_FULL, "full")
+    ad = get_adapter(cfg)
+    detail: dict = {}
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    params = ad.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"[chip_smoke]   {P12_FULL} FULL: {n_params / 1e9:.4f} B parameters in the tree "
+          f"(param_count {cfg.param_count() / 1e9:.4f} B, which leaves out the norms), "
+          f"{cfg.dtype}, d_model {cfg.d_model}, head_dim {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}; init {time.perf_counter() - start:.1f} s")
+    if {p.dtype for p in tree_leaves(params)} != {torch.bfloat16, torch.float32}:
+        raise AssertionError("phase 12: the full model is not bf16 with float32 norms")
+    rng = np.random.default_rng(13)
+
+    # the 4k forward: the chunked branch, q_chunk 512
+    long = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, P12_LONG))).cuda()
+    q_chunk = adaptive_q_chunk(P12_LONG)
+    with torch.no_grad():
+        fwd_ms = _ms(torch, lambda: ad.forward(params, long), reps=2, queued=False)
+        logits, _ = ad.forward(params, long)
+    finite = bool(torch.isfinite(logits).all())
+    print(f"[chip_smoke]   forward 1 x {P12_LONG} (q_chunk {q_chunk}, "
+          f"{P12_LONG // q_chunk} chunks): {fwd_ms:.2f} ms, logits {tuple(logits.shape)} "
+          f"{logits.dtype}, finite {finite}")
+    if q_chunk != 512 or not finite:
+        raise AssertionError(f"phase 12: the 4k forward: q_chunk {q_chunk}, finite {finite}")
+    del logits
+
+    # prefill 512 tokens at batch 4, then 64 greedy decode steps
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(P12_BATCH, P12_PROMPT))).cuda()
+    prefill = make_prefill_step(ad)
+    prefill_ms = _ms(torch, lambda: prefill(params, prompt), reps=3, queued=False)
+    step_logits, stamps = [], []
+
+    def hook(pos, lg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        step_logits.append(lg)
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    gen = TS.greedy_generate(ad, params, prompt, P12_GEN + 1, step_hook=hook)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - start
+    steps_ms = np.diff(stamps) * 1e3
+    warm_ms, tok_ms = steps_ms[: P12_PROMPT - 1], steps_ms[P12_PROMPT - 1:]
+    print(f"[chip_smoke]   prefill {P12_BATCH} x {P12_PROMPT}: {prefill_ms:.2f} ms; "
+          f"greedy_generate ({P12_PROMPT} teacher-forced + {P12_GEN} greedy decode steps, "
+          f"positions to {P12_PROMPT + P12_GEN - 1}, the {cfg.pattern[0].window}-slot rings "
+          f"wrap): {gen_s:.2f} s; per decode step (host wall, synchronised) teacher-forced "
+          f"median {np.median(warm_ms):.2f} ms, greedy median {np.median(tok_ms):.2f} ms "
+          f"(min {tok_ms.min():.2f}, max {tok_ms.max():.2f})")
+
+    # teacher-forced decode against forward on the same positions
+    seq = torch.cat([prompt, gen[:, :P12_GEN]], dim=1)  # the tokens each decode step fed
+    dec = torch.stack(step_logits, dim=1)
+    with torch.no_grad():
+        full, _ = ad.forward(params, seq)
+    scale = float(full.float().abs().max())
+    err = float((dec.float() - full.float()).abs().max()) / scale
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    gen_agree = float((gen[:, 1:] == full[:, P12_PROMPT:].argmax(-1)).float().mean())
+    print(f"[chip_smoke]   decode vs forward over {seq.shape[1]} positions x {P12_BATCH}: "
+          f"max |d| {err:.4g} of max |logit| {scale:.4g} (tol {P12_DECODE_TOL}); greedy "
+          f"argmax agreement {agree:.4f} (generated tokens against forward's argmax "
+          f"{gen_agree:.4f})")
+    if not (np.isfinite(err) and err <= P12_DECODE_TOL):
+        raise AssertionError(f"phase 12: gemma3-1b decode differs from forward by {err}")
+    del dec, full, step_logits
+    # where a step's time goes: one call of each, traced
+    cache = ad.init_cache(P12_BATCH, P12_PROMPT + P12_GEN, "cuda")
+    with torch.no_grad():
+        traced = {
+            f"decode step (batch {P12_BATCH})": _device_busy(
+                torch, lambda: ad.decode(params, cache, prompt[:, 0], P12_PROMPT)),
+            f"prefill {P12_BATCH} x {P12_PROMPT}": _device_busy(
+                torch, lambda: prefill(params, prompt)),
+            f"forward 1 x {P12_LONG}": _device_busy(torch, lambda: ad.forward(params, long)),
+        }
+    del cache
+    for name, tr in traced.items():
+        print(f"[chip_smoke]   traced {name}: {tr['device_ops']} device ops, busy "
+              f"{tr['busy_ms']:.2f} ms of {tr['wall_ms']:.2f} ms host wall (idle share "
+              f"{tr['idle_share']:.1%})" if tr["device_ops"] else
+              f"[chip_smoke]   traced {name}: the trace shows no device activity")
+    detail.update(n_params=n_params, forward_4k_ms=fwd_ms, prefill_ms=prefill_ms,
+                  generate_s=gen_s, teacher_forced_step_ms=float(np.median(warm_ms)),
+                  decode_step_ms=tok_ms.tolist(), decode_vs_forward=err,
+                  argmax_agreement=agree, generated_agreement=gen_agree, traced=traced)
+    del params, gen, seq, long
+    torch.cuda.empty_cache()
+    t0 = _phase("lm gemma3-1b FULL forward, prefill, decode", t0)
+
+    # the trainer at full width, in process so that its peak memory is read
+    args = TT.build_parser().parse_args(P12_FULL_TRAIN_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    res = TT.train_lm(args)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [round(x * 1e3, 2) for x in res["step_s"]]
+    losses_ok = np.isfinite(res["first_loss"]) and np.isfinite(res["final_loss"])
+    print(f"[chip_smoke]   train {P12_FULL} FULL, batch {args.batch} x {args.seq}: steps "
+          f"{step_ms} ms (host wall, loss read back), peak card memory {peak / 2**30:.2f} GiB "
+          f"({(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before); "
+          f"loss {res['first_loss']:.4f} -> {res['final_loss']:.4f}")
+    if not losses_ok or len(step_ms) != args.steps:
+        raise AssertionError(f"phase 12: gemma3-1b training: {res['first_loss']}, "
+                             f"{res['final_loss']}, {len(step_ms)} steps")
+    detail.update(train_step_ms=step_ms, train_peak_bytes=peak, train_held_bytes=held,
+                  train_first_loss=res["first_loss"], train_final_loss=res["final_loss"])
+    del res
+    torch.cuda.empty_cache()
+    _phase("lm gemma3-1b FULL train", t0)
+    return detail
+
+
+def _lm_phase(torch, np, K, t0) -> dict:
+    """Phase 12 -> its detail.  Raises on the first failed check."""
+    import ast
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    K.reset_launch_counts()
+    detail = {"smoke": _lm_smoke_archs(torch, np, t0)}
+    t0 = time.perf_counter()
+
+    # (b) the LM trainer, then its resume
+    ckpt = ROOT / P12_CKPT
+    shutil.rmtree(ckpt, ignore_errors=True)
+    first = _train_losses(_run_cli(
+        [sys.executable, "-m", P12_TRAIN, *P12_TRAIN_ARGS, "--steps", str(P12_STEPS)],
+        "p12_train", 300))
+    committed = CheckpointManager(str(ckpt)).list_steps()
+    head, tail = first.get(0, math.nan), [first.get(s, math.nan) for s in range(15, 20)]
+    print(f"[chip_smoke]   train --mode lm yi-6b SMOKE, {P12_STEPS} steps: loss {head:.4f} -> "
+          f"mean of the last 5 {np.mean(tail):.4f}; committed {committed}")
+    if sorted(first) != list(range(P12_STEPS)) or not np.isfinite(list(first.values())).all() \
+            or not np.mean(tail) < head or committed != [10, 20]:
+        raise AssertionError(f"phase 12: the LM trainer: losses {first}, committed {committed}")
+    out = _run_cli(
+        [sys.executable, "-m", P12_TRAIN, *P12_TRAIN_ARGS, "--steps", str(P12_RESUME)],
+        "p12_train_resume", 300)
+    resumed = _train_losses(out)
+    committed = CheckpointManager(str(ckpt)).list_steps()
+    print(f"[chip_smoke]   resumed: steps {min(resumed, default=None)}-"
+          f"{max(resumed, default=None)}, loss {resumed.get(P12_RESUME - 1, math.nan):.4f}; "
+          f"committed {committed}")
+    if "[train] resumed from step 20" not in out or sorted(resumed) != list(
+            range(P12_STEPS, P12_RESUME)) or committed != [20, 30]:
+        raise AssertionError(f"phase 12: the resume: {sorted(resumed)}, committed {committed}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    detail["train_smoke"] = dict(losses=first, resumed=resumed)
+    t0 = _phase("lm train and resume (subprocesses)", t0)
+
+    # (c) the LM server
+    out = _run_cli([sys.executable, "-m", P8_SERVER, *P12_SERVE_ARGS], "p12_serve", 300)
+    line = [ln for ln in out.splitlines() if ln.startswith("[serve] {")]
+    stats = ast.literal_eval(line[-1].removeprefix("[serve] ")) if line else {}
+    print(f"[chip_smoke]   serve --mode lm: {stats}")
+    if stats.get("requests") != 4 or stats.get("gen_shape") != (16,):
+        raise AssertionError(f"phase 12: serve --mode lm: {out[-2000:]}")
+    detail["serve"] = stats
+    t0 = _phase("lm serve (subprocess)", t0)
+
+    # (d) gemma3-1b at its full width
+    detail["full"] = _lm_full(torch, np, t0)
+    launches = K.launch_counts()
+    print(f"[chip_smoke]   registry kernel launches over phase 12's in-process work: {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 12: a registry kernel ran on the LM path: {launches}")
+    detail["launches"] = launches
+    return detail
+
+
 def main() -> int:
     try:
         import torch
@@ -2260,6 +2583,9 @@ def main() -> int:
 
     # 11. train ----------------------------------------------------------------------------------
     detail["train"] = _train_phase(torch, np, K, time.perf_counter())
+
+    # 12. the LM transformer family ---------------------------------------------------------------
+    detail["lm"] = _lm_phase(torch, np, K, time.perf_counter())
 
     kernels = [
         _kernel_entry(name, src, rep, launches[name], totals[name])

@@ -9,6 +9,10 @@ leaf is upcast exactly, which is what the JAX path computes with when it
 promotes ``fp32 @ bf16`` to float32.  Integer leaves (AdamW's step) keep
 their dtype.  A named tuple keeps its type, so its fields stay readable by
 name.
+
+The LM transformer is the exception (:func:`lm_params_from_numpy`): a
+bfloat16 LM computes in bf16, while its norm scales, per-head q / k norms
+and MoE router stay float32, so every LM leaf keeps its own dtype.
 """
 from __future__ import annotations
 
@@ -37,6 +41,21 @@ def tree_to_numpy(tree: Any) -> Any:
     for every floating tensor), for the JAX package to take back."""
     return tree_map(lambda t: t.detach().float().cpu().numpy() if t.is_floating_point()
                     else t.detach().cpu().numpy(), tree)
+
+
+def _leaf_keep_dtype(leaf: Any, device) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":  # numpy's ml_dtypes bf16: via float32, exactly
+        return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def lm_params_from_numpy(tree: Any, device="cpu") -> Any:
+    """JAX LM parameter tree (numpy leaves) -> the port's tree, each leaf in
+    its own dtype (bfloat16 stays bfloat16, float32 stays float32), in the
+    same layout: ``blocks.slotJ`` leaves keep their leading unit axis and
+    ``tail`` stays a list, so checkpoint keys are the JAX package's."""
+    return tree_map(lambda leaf: _leaf_keep_dtype(leaf, device), tree)
 
 
 def unet_params_from_numpy(tree: Any, device="cpu") -> Any:

@@ -1,12 +1,165 @@
 """Model, sampler and phase-aware-sampling (PAS) plan configs.
 
-The port's own copy of the diffusion half of ``repro/common/types.py``;
-field names, defaults and plan semantics are identical.
+The port's own copy of ``repro/common/types.py``: the LM transformer half
+(``AttnSpec``, ``MoESpec``, ``LMConfig``, the shape cells) and the
+diffusion half.  Field names, defaults, derived counts and plan semantics
+are identical.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# LM transformer configs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    """Attention behaviour for one slot of the repeating layer pattern."""
+
+    kind: str = "global"  # "global" | "local" (sliding window) | "none"
+    window: int = 0  # sliding-window size when kind == "local"
+
+    def __post_init__(self):
+        if self.kind not in ("global", "local", "none"):
+            raise ValueError(f"bad attention kind: {self.kind}")
+        if self.kind == "local" and self.window <= 0:
+            raise ValueError("local attention needs window > 0")
+
+
+GLOBAL = AttnSpec("global")
+
+
+def local(window: int) -> AttnSpec:
+    return AttnSpec("local", window)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    num_experts: int
+    top_k: int
+    d_expert: int  # per-expert hidden size
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    # 'ep' shards experts over the model axis, 'tp' shards d_expert; read by
+    # the mesh layouts only (off-mesh every expert is local)
+    shard_mode: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    family: str  # "dense" | "moe" | "audio" | "vlm" | "ssm" | "hybrid"
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+
+    # layer pattern: `pattern` repeats until n_layers is covered; a partial
+    # final repeat is allowed (e.g. gemma3's 26 = 4x(5L+1G) + 2L tail).
+    pattern: Tuple[AttnSpec, ...] = (GLOBAL,)
+
+    norm: str = "rmsnorm"  # "rmsnorm" | "layernorm"
+    act: str = "silu"  # "silu" | "gelu"
+    glu: bool = True  # SwiGLU/GeGLU vs plain MLP
+    rope_theta: float = 10000.0
+    use_rope: bool = True
+    tie_embeddings: bool = False
+    embed_scale: bool = False  # gemma-style sqrt(d_model) embedding scaling
+    logit_softcap: float = 0.0  # gemma2-style final-logit soft capping
+    attn_softcap: float = 0.0  # gemma2-style attention-logit soft capping
+    qk_norm: bool = False  # qwen3-style per-head RMSNorm on q/k
+    post_norm: bool = False  # gemma2/3-style post-sublayer norms
+    moe: Optional[MoESpec] = None
+    # number of parallel output heads over the same vocab (musicgen codebooks)
+    n_codebooks: int = 1
+    # modality frontend stub: if set, inputs are precomputed embeddings of
+    # this dimensionality instead of token ids.
+    frontend_stub: Optional[str] = None  # None | "audio_frames" | "vision_patches"
+
+    # ssm / hybrid extras
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+
+    #: weights and activations of the model: a "bfloat16" model computes in
+    #: bf16 (norm statistics, router and attention scores in float32)
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.n_heads % max(self.n_kv_heads, 1):
+            raise ValueError("n_heads must be divisible by n_kv_heads")
+
+    # -- derived -----------------------------------------------------------
+    def layer_specs(self) -> Tuple[AttnSpec, ...]:
+        reps = -(-self.n_layers // len(self.pattern))
+        return tuple((self.pattern * reps)[: self.n_layers])
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings included once)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        if self.family == "ssm":  # mLSTM block: qkv + gates + out
+            inner = self.ssm_expand * d
+            attn = d * inner * 3 + 2 * d * self.n_heads + inner * d
+        if self.family == "hybrid":
+            inner = self.ssm_expand * d
+            attn += d * inner * 2 + inner * d + inner * self.ssm_state * 2
+        if self.moe is not None:
+            mlp = self.moe.num_experts * 3 * d * self.moe.d_expert
+            mlp += d * self.moe.num_experts  # router
+        elif f > 0:
+            mlp = (3 if self.glu else 2) * d * f
+        else:
+            mlp = 0
+        per_layer = attn + mlp + 2 * d  # + norms
+        emb = v * d * (1 if self.tie_embeddings else 2) * self.n_codebooks
+        return self.n_layers * per_layer + emb
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top-k experts)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        full = self.param_count()
+        mlp_all = self.n_layers * self.moe.num_experts * 3 * d * self.moe.d_expert
+        mlp_act = self.n_layers * self.moe.top_k * 3 * d * self.moe.d_expert
+        return full - mlp_all + mlp_act
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPE_CELLS = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)
+
+# ---------------------------------------------------------------------------
+# Diffusion configs
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

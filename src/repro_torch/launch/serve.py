@@ -1,6 +1,6 @@
 """Serving CLI for the PyTorch port: a synthetic txt2img request stream
 through the continuous-batching engine or the static lockstep baseline, or
-the continuous engine served over HTTP.
+the continuous engine served over HTTP; ``--mode lm`` serves an LM arch.
 
 Requests are built as ``repro.launch.serve`` builds them: per-request prompt
 embeddings and noise from ``np.random.default_rng(seed * 100_003 + i)``;
@@ -35,6 +35,15 @@ an ephemeral port; ``--port-file`` publishes the bound port for scripted
 clients (``python -m repro_torch.serving.client``).  ``--quality`` is then
 the default for payloads that carry none.
 
+``--mode lm`` serves the SMOKE variant of ``--arch`` (random weights from
+``--seed``), as ``repro.launch.serve`` does: requests of ``--prompt-len``
+random tokens, packed into batches of ``--batch`` (the last padded with
+copies of its last request), each batch prefilled, its prompt written
+into the KV cache by teacher-forced decode steps, then ``--gen-len``
+tokens decoded greedily (:func:`greedy_generate`).  No kernel of
+``repro_torch.kernels`` runs on this path, as no Pallas kernel runs on the
+reference's.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --mode diffusion --unet sd_v14 \\
       --requests 4 --batch 2 --timesteps 8 --cache cross --quality draft
@@ -43,23 +52,144 @@ Usage:
       --cache cross --timesteps 6
   PYTHONPATH=src python -m repro_torch.launch.serve --unet sd_v14 --batch 2 --timesteps 8 \\
       --cache cross --http 127.0.0.1:0 --port-file build/http.port
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch gemma3-1b --requests 4
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import os
 import signal
+import time
+from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from repro_torch import kernels as K
+from repro_torch.configs import ARCH_IDS, get_lm_config
+from repro_torch.launch.steps import (
+    ArchAdapter,
+    get_adapter,
+    make_decode_step,
+    make_prefill_step,
+)
 from repro_torch.models import unet as U
 from repro_torch.serving import config as CFG
 from repro_torch.serving.driver import EngineDriver
-from repro_torch.serving.engine import GenRequest, serve_static
+from repro_torch.serving.engine import GenRequest, serve_static, torch_device
 from repro_torch.serving.frontend import HTTPFrontend, RequestFactory
 from repro_torch.serving.policy import QualityPolicy, default_pas_plan
+
+
+# ---------------------------------------------------------------------------
+# Request plumbing (lm mode; diffusion uses the engine's GenRequest)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    payload: Any  # token prompt
+    submitted: float = dataclasses.field(default_factory=time.perf_counter)
+    completed: float | None = None
+    result: Any = None
+
+    @property
+    def latency(self) -> float:
+        return (self.completed or time.perf_counter()) - self.submitted
+
+
+def pack_batches(reqs: list[Request], batch: int) -> list[list[Request]]:
+    """Fixed-size batches; the caller pads the tail batch by repeating its
+    last request (results for pad lanes are dropped)."""
+    return [reqs[i : i + batch] for i in range(0, len(reqs), batch)]
+
+
+def make_lm_requests(args, vocab_size: int) -> list[Request]:
+    """The reference's prompts: ``--requests`` rows of ``--prompt-len``
+    tokens from ``np.random.default_rng(--seed)``."""
+    rng = np.random.default_rng(args.seed)
+    return [
+        Request(rid=i,
+                payload=rng.integers(0, vocab_size, size=(args.prompt_len,)).astype(np.int32))
+        for i in range(args.requests)
+    ]
+
+
+def greedy_generate(
+    adapter: ArchAdapter,
+    params: Any,
+    tokens: torch.Tensor,
+    gen_len: int,
+    step_hook: Callable[[int, torch.Tensor], None] | None = None,
+) -> torch.Tensor:
+    """Greedy continuation of ``tokens`` [B, P]: a prefill gives the first
+    token, teacher-forced decode steps write the prompt into the KV cache,
+    then ``gen_len - 1`` decode steps each take the argmax of the last
+    (codebook 0 of a multi-codebook model).  Returns [B, gen_len] token ids.
+    ``step_hook(pos, logits)`` sees every decode step's logits."""
+    b, prompt_len = tokens.shape
+    decode = make_decode_step(adapter)
+    nxt = torch.argmax(make_prefill_step(adapter)(params, tokens), dim=-1)
+    if nxt.ndim > 1:  # multi-codebook heads: greedy over codebook 0
+        nxt = nxt[..., 0]
+    cache = adapter.init_cache(b, prompt_len + gen_len, tokens.device)
+    for pos in range(prompt_len):
+        lg, cache = decode(params, cache, tokens[:, pos], pos)
+        if step_hook is not None:
+            step_hook(pos, lg)
+    outs = [nxt]
+    for i in range(gen_len - 1):
+        lg, cache = decode(params, cache, nxt, prompt_len + i)
+        if step_hook is not None:
+            step_hook(prompt_len + i, lg)
+        nxt = torch.argmax(lg, dim=-1)
+        if nxt.ndim > 1:
+            nxt = nxt[..., 0]
+        outs.append(nxt)
+    return torch.stack(outs, dim=1)
+
+
+def serve_lm(args) -> dict:
+    """Batched prefill + greedy decode of ``args.arch``'s SMOKE variant."""
+    device = torch_device(args.device)
+    cfg = get_lm_config(args.arch, "smoke")
+    adapter = get_adapter(cfg)
+    params = adapter.init(torch.Generator(device=device).manual_seed(args.seed), device)
+    reqs = make_lm_requests(args, cfg.vocab_size)
+
+    b = args.batch
+    done: list[Request] = []
+    t_start = time.perf_counter()
+    for group in pack_batches(reqs, b):
+        toks = np.stack([g.payload for g in group] + [group[-1].payload] * (b - len(group)))
+        gen = greedy_generate(adapter, params, torch.from_numpy(toks).to(device), args.gen_len)
+        gen = gen.cpu().numpy()
+        now = time.perf_counter()
+        for lane, g in enumerate(group):
+            g.result = gen[lane]
+            g.completed = now
+            done.append(g)
+    wall = time.perf_counter() - t_start
+
+    lat = [r.latency for r in done]
+    total_tokens = len(done) * args.gen_len
+    return {
+        "mode": "lm",
+        "arch": args.arch,
+        "requests": len(done),
+        "wall_s": round(wall, 3),
+        "tok_s": round(total_tokens / wall, 1),
+        "p50_latency_s": round(float(np.percentile(lat, 50)), 3),
+        "gen_shape": tuple(done[0].result.shape),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Diffusion serving
+# ---------------------------------------------------------------------------
 
 
 def make_diffusion_requests(args, ucfg, policy: QualityPolicy | None = None) -> list[GenRequest]:
@@ -192,8 +322,10 @@ def serve_http(args) -> None:
 def build_parser() -> argparse.ArgumentParser:
     """The serving CLI's flags (``CFG.from_args`` maps them to an engine config)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["diffusion"], default="diffusion")
+    ap.add_argument("--mode", choices=["diffusion", "lm"], default="diffusion")
     ap.add_argument("--unet", default="sd_toy")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="gemma3-1b",
+                    help="LM arch (--mode lm; its SMOKE variant is served)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4, help="lanes (continuous) / batch (static)")
     ap.add_argument("--timesteps", type=int, default=20)
@@ -270,6 +402,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--max-inflight", type=int, default=32,
         help="bounded admission depth of the HTTP frontend (429 beyond it)",
     )
+    ap.add_argument("--prompt-len", type=int, default=16, help="prompt tokens (--mode lm)")
+    ap.add_argument("--gen-len", type=int, default=16, help="generated tokens (--mode lm)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -277,9 +411,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.http is not None:
+        if args.mode != "diffusion":
+            raise SystemExit("--http currently serves --mode diffusion only")
         serve_http(args)
         return
-    print(f"[serve] {serve_diffusion(args)}")
+    stats = serve_diffusion(args) if args.mode == "diffusion" else serve_lm(args)
+    print(f"[serve] {stats}")
 
 
 if __name__ == "__main__":

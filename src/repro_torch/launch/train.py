@@ -1,21 +1,29 @@
-"""Training driver of the PyTorch port: the diffusion half of
-``repro/launch/train.py``.
+"""Training driver of the PyTorch port (``repro/launch/train.py``).
 
-``--mode unet`` trains a StableDiff U-Net with the eps-prediction diffusion
-objective on structured synthetic latents (the ``train_unet`` example runs
-this path).  ``--mode lm`` is refused: LM training waits for the port of
-the LM substrate.
+Two modes, chosen by ``--mode``:
 
-Production posture wired in: the host-sharded data pipeline, checkpoint /
-restart with atomic commits (``repro_torch.checkpoint``), optional
-error-feedback int8 gradient compression.
+* ``lm``: train an LM arch of the transformer family (``--arch``,
+  ``--variant smoke|full``) on the synthetic token stream; the ``ssm`` /
+  ``hybrid`` archs (xlstm, hymba) raise ``NotImplementedError`` until
+  their port.
+* ``unet``: train a StableDiff U-Net with the eps-prediction diffusion
+  objective on structured synthetic latents (the ``train_unet`` example
+  runs this path).
 
-The step differentiates the ``eager`` backend with autograd: the Hopper
-kernels have no backward (nor have the JAX package's, whose trainer runs
-its ``xla`` backend), and their wrappers refuse an operand that requires
-grad.  The random draws of a step, timesteps and noise, come from an
-explicit ``torch.Generator`` on the device (:func:`draw_noise`) and enter
-the step as tensors, so a test can feed it the JAX package's draws.
+Production posture wired in: the host-sharded data pipeline with async
+prefetch, checkpoint / restart with atomic commits
+(``repro_torch.checkpoint``), the SIGTERM preemption guard and straggler
+detection (``--mode lm``), optional error-feedback int8 gradient
+compression (``--mode unet``).
+
+The U-Net step differentiates the ``eager`` backend with autograd: the
+Hopper kernels have no backward (nor have the JAX package's, whose trainer
+runs its ``xla`` backend), and their wrappers refuse an operand that
+requires grad.  The random draws of a step, timesteps and noise, come from
+an explicit ``torch.Generator`` on the device (:func:`draw_noise`) and
+enter the step as tensors, so a test can feed it the JAX package's draws.
+The LM path calls no kernel of ``repro_torch.kernels``, as the reference's
+calls no Pallas kernel.
 
 Runs on the GPU unless ``--device cpu`` asks for the CPU.
 
@@ -23,11 +31,14 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --unet sd_v14 --steps 4 --batch 2 \\
       --ckpt-dir build/ckpt --save-every 2
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20 --batch 2
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm --arch yi-6b --variant smoke \\
+      --steps 20 --batch 2 --seq 16 --device cpu --ckpt-dir build/lm_ckpt --save-every 10
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm --arch gemma3-1b --variant full \\
+      --batch 2 --seq 1024 --steps 6
 """
 from __future__ import annotations
 
 import argparse
-import sys
 import time
 
 import numpy as np
@@ -36,8 +47,9 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.common.tree import tree_leaves, tree_unflatten
 from repro_torch.common.types import DiffusionConfig
-from repro_torch.configs import get_unet_config
-from repro_torch.data.pipeline import DataConfig, latent_batch
+from repro_torch.configs import ARCH_IDS, get_lm_config, get_unet_config
+from repro_torch.data.pipeline import DataConfig, Prefetcher, latent_batch, token_batch
+from repro_torch.launch.steps import get_adapter, make_train_step
 from repro_torch.models import diffusion as D
 from repro_torch.models import unet as U
 from repro_torch.optim import (
@@ -47,10 +59,84 @@ from repro_torch.optim import (
     init_adamw,
     init_compression,
 )
+from repro_torch.runtime.fault_tolerance import PreemptionGuard, StragglerDetector
 from repro_torch.serving.engine import torch_device
 
 #: classes of the synthetic latents; the context is their one-hot row
 N_CLASSES = 8
+
+
+# ---------------------------------------------------------------------------
+# LM training
+# ---------------------------------------------------------------------------
+
+
+def train_lm(args) -> dict:
+    """Train ``args.arch`` (``args.variant``) for ``args.steps`` steps on
+    ``token_batch``'s stream (batch ``args.batch``, ``args.seq`` tokens),
+    resuming from the newest checkpoint in ``args.ckpt_dir``.  Returns the
+    first and last loss, the step it started from, each step's host wall
+    seconds (the loss read back, so the card is synchronised) and the
+    final ``{"params", "opt"}`` state."""
+    device = torch_device(args.device)
+    cfg = get_lm_config(args.arch, args.variant)
+    adapter = get_adapter(cfg)
+    opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
+                          warmup_steps=min(20, args.steps // 5 + 1))
+
+    params = adapter.init(torch.Generator(device=device).manual_seed(args.seed), device)
+    print(f"[train] arch={args.arch} variant={args.variant} params={_n_params(params)/1e6:.1f}M "
+          f"dtype={cfg.dtype}")
+    opt = init_adamw(params)
+    step_fn = make_train_step(adapter, opt_cfg, remat=False)
+
+    dc = DataConfig(global_batch=args.batch, seq_len=args.seq + 1, vocab_size=cfg.vocab_size,
+                    seed=args.seed)
+    ckpt = CheckpointManager(args.ckpt_dir, keep=2) if args.ckpt_dir else None
+    state = {"params": params, "opt": opt}
+    start = 0
+    if ckpt is not None:
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            start, state = restored
+            print(f"[train] resumed from step {start}")
+
+    guard = PreemptionGuard(install=not args.no_sigterm)
+    strag = StragglerDetector()
+    losses, step_s = [], []
+    pre = Prefetcher(lambda s: token_batch(dc, s), start_step=start)
+    try:
+        for step in range(start, args.steps):
+            _, np_batch = next(pre)
+            batch = {"inputs": torch.from_numpy(np_batch["tokens"]).to(device),
+                     "labels": torch.from_numpy(np_batch["labels"]).to(device)}
+            t0 = time.perf_counter()
+            state["params"], state["opt"], loss = step_fn(state["params"], state["opt"], batch)
+            loss = float(loss)  # waits for the step's last kernel
+            dt = time.perf_counter() - t0
+            losses.append(loss)
+            step_s.append(dt)
+            if strag.observe(step, dt):
+                print(f"[train] straggler step={step} dt={dt:.3f}s")
+            if step % args.log_every == 0:
+                print(f"[train] step={step} loss={loss:.4f} dt={dt*1e3:.1f}ms")
+            if guard.requested and ckpt is not None:
+                ckpt.save(step + 1, state, extra={"preempted": True})
+                print(f"[train] preempted; checkpointed step {step+1}")
+                break
+            if ckpt is not None and (step + 1) % args.save_every == 0:
+                ckpt.save(step + 1, state)
+    finally:
+        pre.close()
+    nan = float("nan")
+    return {"final_loss": losses[-1] if losses else nan,
+            "first_loss": losses[0] if losses else nan,
+            "start_step": start, "step_s": step_s, "state": state}
+
+
+# ---------------------------------------------------------------------------
+# U-Net diffusion training
+# ---------------------------------------------------------------------------
 
 
 def draw_noise(dcfg: DiffusionConfig, gen: torch.Generator, x0: torch.Tensor):
@@ -167,7 +253,7 @@ def train_unet(args) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=["lm", "unet"], default="unet")
-    ap.add_argument("--arch", default="yi-6b", help="LM arch (--mode lm, not ported)")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="yi-6b", help="LM arch (--mode lm)")
     ap.add_argument("--variant", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--unet", default="sd_toy")
     ap.add_argument("--steps", type=int, default=100)
@@ -178,8 +264,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--compress-grads", action="store_true")
-    ap.add_argument("--no-sigterm", action="store_true", help="(--mode lm)")
+    ap.add_argument("--compress-grads", action="store_true", help="(--mode unet)")
+    ap.add_argument("--no-sigterm", action="store_true",
+                    help="leave SIGTERM alone (--mode lm; by default it checkpoints and stops)")
     ap.add_argument(
         "--device", default="cuda",
         help="torch device; runs on the GPU unless 'cpu' is asked for explicitly",
@@ -189,9 +276,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.mode == "lm":
-        sys.exit("[train] --mode lm waits for the port of the LM substrate; --mode unet runs")
-    res = train_unet(args)
+    res = train_lm(args) if args.mode == "lm" else train_unet(args)
     print(f"[train] done: { {k: res[k] for k in ('first_loss', 'final_loss')} }")
 
 

@@ -1,7 +1,8 @@
 """repro_torch stands alone: it imports neither JAX nor the repro package,
 and neither do the port's examples (``examples/torch_*.py``) nor its chip
-smoke test (``chip_smoke.py``), whose HTTP server and router subprocesses
-run the port, and the router's replicas are the port's server."""
+smoke test (``chip_smoke.py``), whose HTTP server, router, LM trainer and
+LM server subprocesses run the port, and the router's replicas are the
+port's server."""
 import pathlib
 import re
 import subprocess
@@ -52,10 +53,12 @@ def test_chip_smoke_starts_only_the_port():
     """Every module chip_smoke.py runs with ``python -m`` is the port's, and
     importing the script (not running it) loads no JAX and no repro."""
     text = CHIP_SMOKE.read_text()
-    modules = re.findall(r'^(P8_SERVER|P9_ROUTER) = "([\w.]+)"', text, re.M)
+    modules = re.findall(r'^(P8_SERVER|P9_ROUTER|P12_TRAIN) = "([\w.]+)"', text, re.M)
     assert modules == [("P8_SERVER", "repro_torch.launch.serve"),
-                       ("P9_ROUTER", "repro_torch.launch.router")]
-    assert re.findall(r'"-m", ([\w.]+)', text) == ["P8_SERVER", "P9_ROUTER"]
+                       ("P9_ROUTER", "repro_torch.launch.router"),
+                       ("P12_TRAIN", "repro_torch.launch.train")]
+    assert re.findall(r'"-m", ([\w.]+)', text) == [
+        "P8_SERVER", "P9_ROUTER", "P12_TRAIN", "P12_TRAIN", "P8_SERVER"]
     code = (
         "import importlib.util, sys\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(CHIP_SMOKE)!r})\n"

@@ -34,8 +34,9 @@ here.  Two steps each, with ``AdamWConfig`` as ``train_unet`` builds it for
 Besides: ``param_dtypes(sd_v14)`` is ``jax.eval_shape(init_unet)``'s
 dtypes; ``vae_encode`` within 2e-5 (measured 9.5e-7); ``train_unet`` on the
 CPU trains, checkpoints and resumes; each kernel wrapper refuses an operand
-that requires grad under grad mode; ``--mode lm`` is refused; the example
-runs in-process at sd_toy.
+that requires grad under grad mode; ``--mode lm`` refuses the recurrent
+archs (the transformer family trains: ``tests/test_torch_lm.py``); the
+example runs in-process at sd_toy.
 """
 import argparse
 import dataclasses
@@ -307,12 +308,15 @@ def test_kernel_wrappers_refuse_an_operand_that_requires_grad(name):
 
 
 def test_mode_lm_is_refused_and_no_gpu_needs_device_cpu(capsys):
-    with pytest.raises(SystemExit) as e:
-        TT.main(["--mode", "lm"])
-    assert "--mode lm" in str(e.value.code)
+    """``--mode lm`` is refused for an xlstm / hymba arch until their port;
+    without a GPU both modes need ``--device cpu``."""
+    with pytest.raises(NotImplementedError) as e:
+        TT.main(["--mode", "lm", "--arch", "xlstm-350m", "--device", "cpu"])
+    assert "item 1b" in str(e.value)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            TT.main(["--steps", "1"])
+        for argv in (["--steps", "1"], ["--mode", "lm", "--steps", "1"]):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                TT.main(argv)
 
 
 def test_train_unet_example_on_cpu(tmp_path, capsys):
