@@ -116,9 +116,9 @@ version.  Phases:
    every kernel wrapper refuses an operand that requires grad;
 12. the LM transformer family (no kernel of ``KERNEL_REGISTRY`` runs on
    it, as no Pallas kernel runs on the reference's LM path; the phase
-   fails if one launched): (a) every transformer-family SMOKE arch
-   (random weights from a seed) on the card against the same weights on
-   the CPU, TF32 off: forward logits, aux loss, one train step's loss and
+   fails if one launched): (a) every SMOKE arch, the eight of the
+   transformer family and the recurrent xlstm and hymba (random weights
+   from a seed), on the card against the same weights on the CPU, TF32 off: forward logits, aux loss, one train step's loss and
    16 teacher-forced decode steps' logits within 1e-4 relative; (b)
    ``python -m repro_torch.launch.train --mode lm --arch yi-6b`` (SMOKE,
    20 steps, a checkpoint every 10) as a subprocess, the mean of its last
@@ -131,7 +131,30 @@ version.  Phases:
    (the 512-slot local rings wrap), every decode step's logits against
    the forward's over the same 576 positions within 5e-2 of max |logit|
    with the argmax agreement printed, then ``train_lm`` at batch 2 x 1024
-   for 6 steps: each step's time and the peak card memory.
+   for 6 steps: each step's time and the peak card memory;
+13. the recurrent LM families and layer skipping (no kernel of
+   ``KERNEL_REGISTRY`` may launch; each step prints its wall time and the
+   card's name and power limit): (a) hymba-1.5b SMOKE decodes 1040
+   positions on the card (its 1024-slot ring wraps) against its own CPU
+   run and against its forward on the card, within 1e-4; (b) ``python -m
+   repro_torch.launch.train --mode lm --arch hymba-1.5b`` (SMOKE, 4 steps,
+   a checkpoint every 2, then a resume to 6) and ``python -m
+   repro_torch.launch.serve --mode lm --arch xlstm-350m --requests 4`` as
+   subprocesses; (c) xlstm-350m and hymba-1.5b at their full width (bf16,
+   random init): a long forward (xlstm 1 x 4096, 16 chunks of 256; hymba
+   1 x 2048, past its window), a batch-4 prefill of 512 tokens,
+   ``greedy_generate`` over a 64-token prompt with 64 new tokens (bf16
+   decode against forward and the argmax agreement printed), the same
+   weights upcast to float32: decode against forward over the prompt and
+   xlstm's forward in chunks of 16 against one chunk, within 1e-2 of max
+   |logit| (``P13_F32_TOL`` says why bf16 is not gated), one traced decode
+   step (device ops, busy ms, idle share), and ``train_lm`` (xlstm 2 x
+   1024, hymba 1 x 1024) with each step's time and the peak card memory;
+   (d) ``core.lm_skip.skip_decode`` on gemma3-1b FULL over 64 tokens at
+   batch 4 under ``SkipPlan(1, 1, 2)`` and ``SkipPlan(1, 1, 4)``: ms of a
+   FULL and of a SKIP step beside exact ``lm_decode``'s, the logit cosine
+   against exact decode (from a random init: a check of the mechanism,
+   not of quality) and ``flops_reduction``.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It prints the
 per-kernel JSON line, the card line and, last, the ``{"ok": true, ...}``
@@ -339,6 +362,35 @@ P12_LONG, P12_PROMPT, P12_BATCH, P12_GEN = 4096, 512, 4, 64
 P12_DECODE_TOL = 5e-2
 P12_FULL_TRAIN_ARGS = ["--mode", "lm", "--arch", P12_FULL, "--variant", "full", "--batch", "2",
                        "--seq", "1024", "--steps", "6", "--log-every", "1", "--no-sigterm"]
+#: phase 13 (a): hymba SMOKE decoded past its 1024-token window (1040 =
+#: HYMBA_WINDOW + 16), card against CPU and decode against forward
+P13_WINDOW_ARCH, P13_WINDOW_LEN, P13_TOL = "hymba-1.5b", 1040, 1e-4
+#: phase 13 (b): the recurrent trainer and server as a user starts them
+P13_CKPT = "build/p13_lm_ckpt"
+P13_TRAIN_ARGS = ["--mode", "lm", "--arch", "hymba-1.5b", "--variant", "smoke", "--batch", "2",
+                  "--seq", "16", "--lr", "3e-3", "--ckpt-dir", P13_CKPT, "--save-every", "2",
+                  "--log-every", "1"]
+P13_STEPS, P13_RESUME = 4, 6
+P13_SERVE_ARGS = ["--mode", "lm", "--arch", "xlstm-350m", "--requests", "4"]
+#: phase 13 (c): arch -> (long forward length, train batch, train seq) at
+#: full width, bf16; phase 12 (d)'s 4 x 512 prefill and 64 new tokens, but a
+#: 64-token teacher-forced prompt before them: a decode step is host-bound
+#: at 50-100 ms, so 512 prompt steps would cost 25-60 s a model.  The gate
+#: is float32 (the same weights upcast, TF32 off): decode against forward
+#: over the prompt, and xlstm's forward in chunks of 16 against one chunk
+#: (the state carried between chunks).  bf16 is printed, not gated: from a
+#: random init the reference's own xlstm-350m decode and forward part by
+#: 0.65 of max |logit| over 64 positions in bf16 (1.6e-3 in float32;
+#: tools/xlstm_decode_drift.py), so no bf16 gate can hold
+P13_FULL = {"xlstm-350m": (4096, 2, 1024), "hymba-1.5b": (2048, 1, 1024)}
+P13_PROMPT, P13_CARRY_CHUNK, P13_F32_TOL = 64, 16, 1e-2
+#: train steps at full width: xlstm's first step carries the warm-up; one
+#: hymba step takes 33-40 s (its Python scan under autograd)
+P13_TRAIN_STEPS = {"xlstm-350m": 2, "hymba-1.5b": 1}
+#: phase 13 (d): layer skipping on gemma3-1b FULL, 64 tokens at batch 4
+P13_SKIP_ARCH, P13_SKIP_TOKENS, P13_SKIP_BATCH = "gemma3-1b", 64, 4
+P13_SKIP_PLANS = ((1, 1, 2), (1, 1, 4))
+P13_SKIP_TOL = 1e-3  # the first (FULL) step against exact decode, of max |logit|
 
 
 def _phase(name: str, t0: float) -> float:
@@ -2049,17 +2101,15 @@ def _train_losses(stdout: str) -> dict[int, float]:
 
 
 def _lm_smoke_archs(torch, np, t0) -> dict:
-    """Phase 12 (a): every transformer-family SMOKE arch, card against CPU."""
+    """Phase 12 (a): every SMOKE arch, card against CPU."""
     from repro_torch.common.tree import tree_map
     from repro_torch.configs import ARCH_IDS, get_lm_config
-    from repro_torch.launch.steps import RECURRENT_FAMILIES, get_adapter, make_train_step
+    from repro_torch.launch.steps import get_adapter, make_train_step
     from repro_torch.optim import AdamWConfig, init_adamw
 
     out = {}
     for arch in ARCH_IDS:
         cfg = get_lm_config(arch, "smoke")
-        if cfg.family in RECURRENT_FAMILIES:
-            continue
         ad = get_adapter(cfg)
         rng = np.random.default_rng(12)
         x = (rng.normal(size=(P12_B, P12_S, cfg.d_model)).astype(np.float32) if cfg.frontend_stub
@@ -2305,6 +2355,349 @@ def _lm_phase(torch, np, K, t0) -> dict:
     if any(launches.values()):
         raise AssertionError(f"phase 12: a registry kernel ran on the LM path: {launches}")
     detail["launches"] = launches
+    return detail
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _phase13(name: str, t0: float) -> float:
+    """Phase 13's step line: its wall time and the card it ran on."""
+    now = time.perf_counter()
+    print(f"[chip_smoke] phase {name}: {now - t0:.1f} s on {_card()}", flush=True)
+    return now
+
+
+def _all_finite(values) -> bool:
+    return all(math.isfinite(v) for v in values)
+
+
+def _hymba_window(torch, np, t0) -> dict:
+    """Phase 13 (a): hymba SMOKE decoded past its window, card against CPU
+    and against its own forward on the card."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import get_lm_config
+    from repro_torch.launch.steps import get_adapter
+    from repro_torch.models.hymba import HYMBA_WINDOW
+
+    cfg = get_lm_config(P13_WINDOW_ARCH, "smoke")
+    ad = get_adapter(cfg)
+    if P13_WINDOW_LEN <= HYMBA_WINDOW:
+        raise AssertionError(f"phase 13: {P13_WINDOW_LEN} tokens do not pass the window")
+    toks = torch.from_numpy(np.random.default_rng(131).integers(
+        0, cfg.vocab_size, size=(1, P13_WINDOW_LEN)))
+    cpu_params = ad.init(torch.Generator().manual_seed(0), "cpu")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        x = toks.to(dev)
+        with torch.no_grad():
+            full, _ = ad.forward(params, x)
+            cache, steps = ad.init_cache(1, P13_WINDOW_LEN, dev), []
+            start = time.perf_counter()
+            for pos in range(P13_WINDOW_LEN):
+                lg, cache = ad.decode(params, cache, x[:, pos], pos)
+                steps.append(lg)
+            dec = torch.stack(steps, 1)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            dec_s = time.perf_counter() - start
+        res[dev] = (full.float().cpu(), dec.float().cpu(), dec_s, cache.kv.k.shape[2])
+    (fc, dc, _, _), (fg, dg, dec_s, ring) = res["cpu"], res["cuda"]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    errs = dict(decode_vs_cpu=rel(dg, dc), forward_vs_cpu=rel(fg, fc),
+                decode_vs_forward=rel(dg, fg), last16_decode_vs_forward=rel(dg[:, -16:],
+                                                                            fg[:, -16:]))
+    print(f"[chip_smoke]   {P13_WINDOW_ARCH} SMOKE over 1 x {P13_WINDOW_LEN} ({ring}-slot ring, "
+          f"window {HYMBA_WINDOW}): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (tol {P13_TOL}); {P13_WINDOW_LEN} decode steps on the card in {dec_s:.2f} s")
+    if ring != HYMBA_WINDOW or not all(np.isfinite(v) and v <= P13_TOL for v in errs.values()):
+        raise AssertionError(f"phase 13: hymba past its window: ring {ring}, {errs}")
+    _phase13("lm hymba SMOKE past the window", t0)
+    return dict(errs, decode_s=dec_s, ring=ring)
+
+
+def _recurrent_cli(t0) -> dict:
+    """Phase 13 (b): hymba's trainer with a resume, xlstm's server."""
+    import ast
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    ckpt = ROOT / P13_CKPT
+    shutil.rmtree(ckpt, ignore_errors=True)
+    first = _train_losses(_run_cli(
+        [sys.executable, "-m", P12_TRAIN, *P13_TRAIN_ARGS, "--steps", str(P13_STEPS)],
+        "p13_train", 300))
+    committed = CheckpointManager(str(ckpt)).list_steps()
+    print(f"[chip_smoke]   train --mode lm hymba-1.5b SMOKE, {P13_STEPS} steps: losses "
+          f"{[round(first[k], 4) for k in sorted(first)]}; committed {committed}")
+    if sorted(first) != list(range(P13_STEPS)) or not _all_finite(first.values()) \
+            or committed != [2, 4]:
+        raise AssertionError(f"phase 13: the hymba trainer: losses {first}, committed {committed}")
+    out = _run_cli([sys.executable, "-m", P12_TRAIN, *P13_TRAIN_ARGS, "--steps", str(P13_RESUME)],
+                   "p13_train_resume", 300)
+    resumed = _train_losses(out)
+    committed = CheckpointManager(str(ckpt)).list_steps()
+    print(f"[chip_smoke]   resumed: steps {sorted(resumed)}; committed {committed}")
+    if f"[train] resumed from step {P13_STEPS}" not in out or sorted(resumed) != list(
+            range(P13_STEPS, P13_RESUME)) or committed != [4, 6]:
+        raise AssertionError(f"phase 13: the resume: {sorted(resumed)}, committed {committed}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = _phase13("lm hymba train and resume (subprocesses)", t0)
+
+    out = _run_cli([sys.executable, "-m", P8_SERVER, *P13_SERVE_ARGS], "p13_serve", 300)
+    line = [ln for ln in out.splitlines() if ln.startswith("[serve] {")]
+    stats = ast.literal_eval(line[-1].removeprefix("[serve] ")) if line else {}
+    print(f"[chip_smoke]   serve --mode lm --arch xlstm-350m: {stats}")
+    if stats.get("requests") != 4 or stats.get("gen_shape") != (16,):
+        raise AssertionError(f"phase 13: serve --mode lm xlstm: {out[-2000:]}")
+    _phase13("lm xlstm serve (subprocess)", t0)
+    return dict(train_losses=first, resumed=resumed, serve=stats)
+
+
+def _recurrent_f32(torch, cfg, params, seq) -> dict:
+    """Phase 13 (c)'s gate: the bf16 weights upcast to float32, teacher-forced
+    decode over ``seq`` against the forward (and, for xlstm, the forward in
+    chunks of ``P13_CARRY_CHUNK`` against one chunk), relative to max |logit|."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.launch.steps import get_adapter
+    from repro_torch.models.xlstm import xlstm_forward
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    ad = get_adapter(cfg)
+    params = tree_map(lambda t: t.float(), params)
+    with torch.no_grad():
+        full, _ = ad.forward(params, seq)
+        cache, steps = ad.init_cache(seq.shape[0], seq.shape[1], "cuda"), []
+        for pos in range(seq.shape[1]):
+            lg, cache = ad.decode(params, cache, seq[:, pos], pos)
+            steps.append(lg)
+        scale = float(full.abs().max())
+        out = dict(decode_vs_forward=float((torch.stack(steps, 1) - full).abs().max()) / scale,
+                   chunk_carry=None)
+        if cfg.family == "ssm":
+            chunked, _ = xlstm_forward(cfg, params, seq, chunk_size=P13_CARRY_CHUNK)
+            out["chunk_carry"] = float((chunked - full).abs().max()) / scale
+    return out
+
+
+def _recurrent_full(torch, np, arch: str, t0) -> dict:
+    """Phase 13 (c): one recurrent arch at its full width from a random init."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import get_lm_config
+    from repro_torch.launch import serve as TS
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.steps import get_adapter, make_prefill_step
+
+    long_len, train_b, train_s = P13_FULL[arch]
+    cfg = get_lm_config(arch, "full")
+    ad = get_adapter(cfg)
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    params = ad.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"[chip_smoke]   {arch} FULL: {n_params / 1e9:.4f} B parameters (param_count "
+          f"{cfg.param_count() / 1e9:.4f} B), {cfg.dtype}, d_model {cfg.d_model}, "
+          f"{cfg.n_layers} layers, vocab {cfg.vocab_size}; init {time.perf_counter() - start:.1f} s")
+    if {p.dtype for p in tree_leaves(params)} != {torch.bfloat16, torch.float32}:
+        raise AssertionError(f"phase 13: {arch} FULL is not bf16 with float32 gates and norms")
+    rng = np.random.default_rng(133)
+
+    long = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, long_len))).cuda()
+    with torch.no_grad():
+        ad.forward(params, long[:, :256])  # warm: the first call's set-up stays out
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        logits, _ = ad.forward(params, long)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - start) * 1e3
+    finite = bool(torch.isfinite(logits).all())
+    print(f"[chip_smoke]   forward 1 x {long_len} (host wall, synchronised, one call): "
+          f"{fwd_ms:.2f} ms, logits {tuple(logits.shape)} {logits.dtype}, finite {finite}")
+    if not finite:
+        raise AssertionError(f"phase 13: {arch}'s long forward is not finite")
+    del logits
+
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(P12_BATCH, P12_PROMPT))).cuda()
+    prefill = make_prefill_step(ad)
+    prefill_ms = _ms(torch, lambda: prefill(params, prompt), reps=1, queued=False)
+    prompt = prompt[:, :P13_PROMPT]
+    step_logits, stamps = [], []
+
+    def hook(pos, lg):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        step_logits.append(lg)
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    gen = TS.greedy_generate(ad, params, prompt, P12_GEN + 1, step_hook=hook)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - start
+    steps_ms = np.diff(stamps) * 1e3
+    warm_ms, tok_ms = steps_ms[: P13_PROMPT - 1], steps_ms[P13_PROMPT - 1:]
+    print(f"[chip_smoke]   prefill {P12_BATCH} x {P12_PROMPT}: {prefill_ms:.2f} ms; "
+          f"greedy_generate ({P13_PROMPT} teacher-forced + {P12_GEN} greedy decode steps): "
+          f"{gen_s:.2f} s; per decode step (host wall, synchronised) teacher-forced median "
+          f"{np.median(warm_ms):.2f} ms, greedy median {np.median(tok_ms):.2f} ms "
+          f"(min {tok_ms.min():.2f}, max {tok_ms.max():.2f})")
+
+    seq = torch.cat([prompt, gen[:, :P12_GEN]], dim=1)
+    dec = torch.stack(step_logits, dim=1)
+    with torch.no_grad():
+        full, _ = ad.forward(params, seq)
+    scale = float(full.float().abs().max())
+    err = float((dec.float() - full.float()).abs().max()) / scale
+    agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    gen_agree = float((gen[:, 1:] == full[:, P13_PROMPT:].argmax(-1)).float().mean())
+    print(f"[chip_smoke]   bf16 decode vs forward over {seq.shape[1]} positions x {P12_BATCH}: "
+          f"max |d| {err:.4g} of max |logit| {scale:.4g} (no gate: see P13_F32_TOL); argmax "
+          f"agreement {agree:.4f} (generated tokens against forward's argmax {gen_agree:.4f})")
+    if not np.isfinite(err):
+        raise AssertionError(f"phase 13: {arch}'s bf16 decode or forward is not finite")
+    f32 = _recurrent_f32(torch, cfg, params, seq[:, :P13_PROMPT])
+    print(f"[chip_smoke]   float32 (the weights upcast) decode vs forward over {P13_PROMPT} "
+          f"positions x {P12_BATCH}: max |d| {f32['decode_vs_forward']:.4g} of max |logit|"
+          + (f"; forward in chunks of {P13_CARRY_CHUNK} vs one chunk: {f32['chunk_carry']:.4g}"
+             if cfg.family == "ssm" else "") + f" (tol {P13_F32_TOL})")
+    if not all(v is None or (np.isfinite(v) and v <= P13_F32_TOL) for v in f32.values()):
+        raise AssertionError(f"phase 13: {arch} in float32: {f32}")
+    del dec, full, step_logits
+    cache = ad.init_cache(P12_BATCH, P13_PROMPT + P12_GEN, "cuda")
+    with torch.no_grad():
+        traced = _device_busy(torch, lambda: ad.decode(params, cache, prompt[:, 0], P13_PROMPT))
+    del cache
+    print(f"[chip_smoke]   traced decode step (batch {P12_BATCH}): {traced['device_ops']} device "
+          f"ops, busy {traced['busy_ms']:.2f} ms of {traced['wall_ms']:.2f} ms host wall (idle "
+          f"share {traced['idle_share']:.1%})" if traced["device_ops"] else
+          "[chip_smoke]   traced decode step: the trace shows no device activity")
+    detail = dict(n_params=n_params, forward_ms=fwd_ms, forward_len=long_len,
+                  prefill_ms=prefill_ms, generate_s=gen_s,
+                  teacher_forced_step_ms=float(np.median(warm_ms)),
+                  decode_step_ms=tok_ms.tolist(), decode_vs_forward_bf16=err, f32=f32,
+                  argmax_agreement=agree, generated_agreement=gen_agree, traced=traced)
+    del params, gen, seq, long, prompt
+    torch.cuda.empty_cache()
+    t0 = _phase13(f"lm {arch} FULL forward, prefill, decode", t0)
+
+    args = TT.build_parser().parse_args(
+        ["--mode", "lm", "--arch", arch, "--variant", "full", "--batch", str(train_b),
+         "--seq", str(train_s), "--steps", str(P13_TRAIN_STEPS[arch]), "--log-every", "1",
+         "--no-sigterm"])
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    res = TT.train_lm(args)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [round(x * 1e3, 2) for x in res["step_s"]]
+    print(f"[chip_smoke]   train {arch} FULL, batch {train_b} x {train_s}: steps {step_ms} ms "
+          f"(host wall, loss read back), peak card memory {peak / 2**30:.2f} GiB "
+          f"({(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before); "
+          f"loss {res['first_loss']:.4f} -> {res['final_loss']:.4f}")
+    if not _all_finite([res["first_loss"], res["final_loss"]]) or len(step_ms) != args.steps:
+        raise AssertionError(f"phase 13: {arch} training: {res['first_loss']}, "
+                             f"{res['final_loss']}, {len(step_ms)} steps")
+    detail.update(train_step_ms=step_ms, train_peak_bytes=peak, train_held_bytes=held,
+                  train_batch=[train_b, train_s], train_first_loss=res["first_loss"],
+                  train_final_loss=res["final_loss"])
+    del res
+    torch.cuda.empty_cache()
+    _phase13(f"lm {arch} FULL train", t0)
+    return detail
+
+
+def _skip_full(torch, np, t0) -> dict:
+    """Phase 13 (d): layer skipping on gemma3-1b at its full width."""
+    from repro_torch.configs import get_lm_config
+    from repro_torch.core import lm_skip as LS
+    from repro_torch.models import transformer as T
+
+    cfg = get_lm_config(P13_SKIP_ARCH, "full")
+    n_units, n_tail = T._pattern_split(cfg)
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(134).integers(
+        0, cfg.vocab_size, size=(P13_SKIP_BATCH, P13_SKIP_TOKENS))).cuda()
+
+    def timed(step):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - start) * 1e3
+
+    exact, exact_ms = [], []
+    cache = T.init_cache(cfg, P13_SKIP_BATCH, P13_SKIP_TOKENS, "cuda")
+    with torch.no_grad():
+        for pos in range(P13_SKIP_TOKENS):
+            (lg, cache), ms = timed(lambda: T.lm_decode(cfg, params, cache, toks[:, pos], pos))
+            exact.append(lg.float())
+            exact_ms.append(ms)
+    del cache
+    detail = dict(arch=P13_SKIP_ARCH, units=n_units, tail=n_tail,
+                  exact_step_ms=float(np.median(exact_ms[1:])), plans={})
+    print(f"[chip_smoke]   {P13_SKIP_ARCH} FULL ({n_units} units of {len(cfg.pattern)} + "
+          f"{n_tail} tail), {P13_SKIP_TOKENS} tokens at batch {P13_SKIP_BATCH}: exact lm_decode "
+          f"median {detail['exact_step_ms']:.2f} ms a step")
+    for plan_args in P13_SKIP_PLANS:
+        plan = LS.SkipPlan(*plan_args)
+        state = LS.init_skip_state(cfg, P13_SKIP_BATCH, P13_SKIP_TOKENS, "cuda")
+        ms_by, cos, first_err, finite = {"FULL": [], "SKIP": []}, [], None, True
+        with torch.no_grad():
+            for pos in range(P13_SKIP_TOKENS):
+                (lg, state), ms = timed(lambda: LS.skip_decode(
+                    cfg, params, state, toks[:, pos], pos, plan))
+                kind = "FULL" if pos % plan.refresh_every == 0 else "SKIP"
+                if pos:
+                    ms_by[kind].append(ms)
+                lg = lg.float()
+                finite = finite and bool(torch.isfinite(lg).all())
+                cos.append(float(torch.nn.functional.cosine_similarity(
+                    lg.reshape(-1), exact[pos].reshape(-1), dim=0)))
+                if pos == 0:
+                    first_err = float((lg - exact[0]).abs().max() / exact[0].abs().max())
+        del state
+        skip_cos = [c for p, c in enumerate(cos) if p % plan.refresh_every]
+        red = LS.flops_reduction(cfg, plan)
+        row = dict(full_step_ms=float(np.median(ms_by["FULL"])),
+                   skip_step_ms=float(np.median(ms_by["SKIP"])),
+                   cos_mean=float(np.mean(cos)), cos_skip_mean=float(np.mean(skip_cos)),
+                   cos_skip_min=float(np.min(skip_cos)), first_step_err=first_err,
+                   flops_reduction=red)
+        detail["plans"][str(plan_args)] = row
+        print(f"[chip_smoke]   skip_decode SkipPlan{plan_args}: FULL step median "
+              f"{row['full_step_ms']:.2f} ms, SKIP step median {row['skip_step_ms']:.2f} ms "
+              f"(host wall, synchronised); logit cosine vs exact decode mean {row['cos_mean']:.4f}"
+              f", over SKIP steps mean {row['cos_skip_mean']:.4f} min {row['cos_skip_min']:.4f}; "
+              f"first (FULL) step vs exact {first_err:.3g}; flops_reduction {red:.4f}")
+        if not finite or not first_err <= P13_SKIP_TOL or not _all_finite(cos):
+            raise AssertionError(f"phase 13: skip_decode {plan_args}: finite {finite}, "
+                                 f"first step {first_err}, cosines {cos}")
+    del params, exact
+    torch.cuda.empty_cache()
+    _phase13(f"lm skip_decode {P13_SKIP_ARCH} FULL", t0)
+    return detail
+
+
+def _recurrent_phase(torch, np, K, t0) -> dict:
+    """Phase 13 -> its detail.  Raises on the first failed check."""
+    K.reset_launch_counts()
+    detail = {"window": _hymba_window(torch, np, t0)}
+    detail["cli"] = _recurrent_cli(time.perf_counter())
+    for arch in P13_FULL:
+        detail[arch] = _recurrent_full(torch, np, arch, time.perf_counter())
+    detail["skip"] = _skip_full(torch, np, time.perf_counter())
+    launches = K.launch_counts()
+    print(f"[chip_smoke]   registry kernel launches over phase 13's in-process work: {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 13: a registry kernel ran on the LM path: {launches}")
+    detail["launches"] = launches
+    _phase13("lm recurrent families and layer skipping", t0)
     return detail
 
 
@@ -2586,6 +2979,13 @@ def main() -> int:
 
     # 12. the LM transformer family ---------------------------------------------------------------
     detail["lm"] = _lm_phase(torch, np, K, time.perf_counter())
+
+    # 13. the recurrent LM families and layer skipping -------------------------------------------
+    # sd_v14's models and the last engine are done with: their card memory
+    # goes back before hymba's full-width train step
+    del engine, models, params, vae_params
+    torch.cuda.empty_cache()
+    detail["lm_recurrent"] = _recurrent_phase(torch, np, K, time.perf_counter())
 
     kernels = [
         _kernel_entry(name, src, rep, launches[name], totals[name])

@@ -1,7 +1,8 @@
 """Arch adapters: one (init, forward, decode, init_cache) surface over the
 LM families, plus the train / prefill / decode step builders the trainer
-and the server share.  The port's copy of ``repro/launch/steps.py`` for
-the transformer family (dense, moe, audio, vlm), off-mesh.
+and the server share.  The port's copy of ``repro/launch/steps.py``,
+off-mesh: the transformer family (dense, moe, audio, vlm), xlstm (``ssm``)
+and hymba (``hybrid``).
 
 A train step differentiates with autograd and updates with the port's
 AdamW (:func:`repro_torch.optim.adamw_update`); the loss is the mean token
@@ -17,12 +18,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.tree import tree_leaves, tree_unflatten
 from repro_torch.common.types import LMConfig
+from repro_torch.models import hymba as HY
 from repro_torch.models import transformer as T
+from repro_torch.models import xlstm as X
 from repro_torch.optim import AdamWConfig, AdamWState, adamw_update
 
 Params = Any
 
-#: the families whose models wait for ROADMAP Queue 1 item 1b
+#: the recurrent families: ``ssm`` is served by ``models/xlstm.py``, ``hybrid``
+#: by ``models/hymba.py``; the other families by ``models/transformer.py``
 RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 
@@ -39,10 +43,28 @@ class ArchAdapter:
 
 
 def get_adapter(cfg: LMConfig) -> ArchAdapter:
-    if cfg.family in RECURRENT_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (xlstm / hymba) is not ported yet; "
-            "it waits for ROADMAP Queue 1 item 1b")
+    if cfg.family == "ssm":
+        return ArchAdapter(
+            cfg=cfg,
+            init=lambda gen, device: X.init_xlstm(gen, cfg, device),
+            forward=lambda p, x, remat=False: X.xlstm_forward(cfg, p, x, remat=remat),
+            decode=lambda p, c, tok, pos: X.xlstm_decode(cfg, p, c, tok, pos),
+            init_cache=lambda batch, max_len, device: X.init_state(cfg, batch, device),
+            forward_hidden=lambda p, x, remat=False: X.xlstm_forward_hidden(
+                cfg, p, x, remat=remat),
+            head_logits=lambda p, h: X.xlstm_head_logits(cfg, p, h),
+        )
+    if cfg.family == "hybrid":
+        return ArchAdapter(
+            cfg=cfg,
+            init=lambda gen, device: HY.init_hymba(gen, cfg, device),
+            forward=lambda p, x, remat=False: HY.hymba_forward(cfg, p, x, remat=remat),
+            decode=lambda p, c, tok, pos: HY.hymba_decode(cfg, p, c, tok, pos),
+            init_cache=lambda batch, max_len, device: HY.init_cache(cfg, batch, max_len, device),
+            forward_hidden=lambda p, x, remat=False: HY.hymba_forward_hidden(
+                cfg, p, x, remat=remat),
+            head_logits=lambda p, h: HY.hymba_head_logits(cfg, p, h),
+        )
     return ArchAdapter(
         cfg=cfg,
         init=lambda gen, device: T.init_lm(gen, cfg, device),

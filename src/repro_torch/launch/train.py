@@ -2,10 +2,9 @@
 
 Two modes, chosen by ``--mode``:
 
-* ``lm``: train an LM arch of the transformer family (``--arch``,
-  ``--variant smoke|full``) on the synthetic token stream; the ``ssm`` /
-  ``hybrid`` archs (xlstm, hymba) raise ``NotImplementedError`` until
-  their port.
+* ``lm``: train an LM arch (``--arch``, ``--variant smoke|full``) on the
+  synthetic token stream: the transformer family, xlstm (``ssm``) and
+  hymba (``hybrid``).
 * ``unet``: train a StableDiff U-Net with the eps-prediction diffusion
   objective on structured synthetic latents (the ``train_unet`` example
   runs this path).

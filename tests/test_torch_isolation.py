@@ -58,7 +58,8 @@ def test_chip_smoke_starts_only_the_port():
                        ("P9_ROUTER", "repro_torch.launch.router"),
                        ("P12_TRAIN", "repro_torch.launch.train")]
     assert re.findall(r'"-m", ([\w.]+)', text) == [
-        "P8_SERVER", "P9_ROUTER", "P12_TRAIN", "P12_TRAIN", "P8_SERVER"]
+        "P8_SERVER", "P9_ROUTER", "P12_TRAIN", "P12_TRAIN", "P8_SERVER",
+        "P12_TRAIN", "P12_TRAIN", "P8_SERVER"]
     code = (
         "import importlib.util, sys\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(CHIP_SMOKE)!r})\n"

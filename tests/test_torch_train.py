@@ -308,11 +308,12 @@ def test_kernel_wrappers_refuse_an_operand_that_requires_grad(name):
 
 
 def test_mode_lm_is_refused_and_no_gpu_needs_device_cpu(capsys):
-    """``--mode lm`` is refused for an xlstm / hymba arch until their port;
-    without a GPU both modes need ``--device cpu``."""
-    with pytest.raises(NotImplementedError) as e:
-        TT.main(["--mode", "lm", "--arch", "xlstm-350m", "--device", "cpu"])
-    assert "item 1b" in str(e.value)
+    """``--mode lm`` runs an xlstm arch on ``--device cpu`` (it refuses no
+    arch); without a GPU both modes need ``--device cpu``."""
+    TT.main(["--mode", "lm", "--arch", "xlstm-350m", "--device", "cpu", "--steps", "2",
+             "--batch", "2", "--seq", "16", "--log-every", "1", "--no-sigterm"])
+    out = capsys.readouterr().out
+    assert "[train] arch=xlstm-350m " in out and "[train] step=1 loss=" in out
     if not torch.cuda.is_available():
         for argv in (["--steps", "1"], ["--mode", "lm", "--steps", "1"]):
             with pytest.raises(RuntimeError, match="device='cpu'"):
