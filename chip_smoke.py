@@ -154,7 +154,21 @@ version.  Phases:
    batch 4 under ``SkipPlan(1, 1, 2)`` and ``SkipPlan(1, 1, 4)``: ms of a
    FULL and of a SKIP step beside exact ``lm_decode``'s, the logit cosine
    against exact decode (from a random init: a check of the mechanism,
-   not of quality) and ``flops_reduction``.
+   not of quality) and ``flops_reduction``;
+14. mesh costing (no kernel of ``KERNEL_REGISTRY`` may launch): (a) ``python
+   -m repro_torch.launch.dryrun`` over all 35 (arch x cell) cells at full
+   width, three sweeps started together (``P14_SWEEPS``: 16 x 16 with
+   two-point costs, 2 x 16 x 16 layout and memory only, 16 x 16 with the
+   optimized ``PerfConfig``), each exiting 0 with 35 ``ok`` cells, and a
+   line a cell: per-device argument GiB, estimated peak GiB against the
+   card's ``total_memory``, the three roofline terms and the bottleneck;
+   (b) gemma3-1b and xlstm-350m FULL costed at ``make_host_mesh()`` (whole
+   depth) on a 2 x 1024 train cell and a batch-4 decode cell, then run on
+   the card: the predicted argument bytes within 1 % of the allocator's
+   rise when the args are placed, the predicted FLOPs equal to
+   ``FlopCounterMode`` over the same step on the card; printed beside,
+   the predicted temp bytes against the ``max_memory_allocated`` rise and
+   the step time against the roofline's ``max(compute, memory)``.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It prints the
 per-kernel JSON line, the card line and, last, the ``{"ok": true, ...}``
@@ -173,13 +187,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
 
-#: H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 without
-#: tensor cores, TF32 and bfloat16 dense on tensor cores
-MEM_BYTES_S = 3.35e12
-FP32_FLOP_S = 67e12
-TF32_FLOP_S = 495e12
-BF16_FLOP_S = 989e12
+#: H100 SXM published peaks (NVIDIA data sheet), the port's one copy
+#: (``repro_torch.launch.mesh``, which imports no torch): HBM3 rate, float32
+#: without tensor cores, TF32 and bfloat16 dense on tensor cores
+try:
+    from repro_torch.launch.mesh import HBM_BW as MEM_BYTES_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_FLOP_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_FP32 as FP32_FLOP_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_TF32 as TF32_FLOP_S
+except ImportError:
+    sys.exit(f"chip_smoke: {SRC / 'repro_torch'} not found; run it from the repository")
 #: the kernels whose float32 products run on the TF32 tensor cores in
 #: "3xTF32" (three TF32 products each): their operations bound is
 #: 3 x operations / TF32_FLOP_S; the float32 CUDA-core bound is printed beside
@@ -385,12 +404,32 @@ P13_SERVE_ARGS = ["--mode", "lm", "--arch", "xlstm-350m", "--requests", "4"]
 P13_FULL = {"xlstm-350m": (4096, 2, 1024), "hymba-1.5b": (2048, 1, 1024)}
 P13_PROMPT, P13_CARRY_CHUNK, P13_F32_TOL = 64, 16, 1e-2
 #: train steps at full width: xlstm's first step carries the warm-up; one
-#: hymba step takes 33-40 s (its Python scan under autograd)
+#: hymba step takes 18-21 s (its Python scan under autograd)
 P13_TRAIN_STEPS = {"xlstm-350m": 2, "hymba-1.5b": 1}
 #: phase 13 (d): layer skipping on gemma3-1b FULL, 64 tokens at batch 4
 P13_SKIP_ARCH, P13_SKIP_TOKENS, P13_SKIP_BATCH = "gemma3-1b", 64, 4
 P13_SKIP_PLANS = ((1, 1, 2), (1, 1, 4))
 P13_SKIP_TOL = 1e-3  # the first (FULL) step against exact decode, of max |logit|
+#: phase 14 (a): the dry run as a user runs it, three sweeps of the 35 (arch x
+#: cell) cells at full width, started together (host work only: it never
+#: touches the card).  The 16 x 16 sweeps count each cell's cost from a 1-unit
+#: and a 2-unit copy of its config (``--extrapolate``): a whole-depth meta run
+#: walks hymba's selective scan position by position, minutes of host time
+#: (tests/test_torch_dryrun.py holds the two equal on every SMOKE arch)
+P14_DRYRUN = "repro_torch.launch.dryrun"
+P14_SWEEPS = {
+    "16x16": ["--all", "--variant", "full", "--extrapolate"],
+    "2x16x16": ["--all", "--variant", "full", "--multipod", "--skip-unrolled"],
+    "16x16 opt": ["--all", "--variant", "full", "--opt", "--extrapolate"],
+}
+P14_CELLS, P14_WAIT_S = 35, 600
+#: phase 14 (b): the model held against the card at make_host_mesh(): arch ->
+#: cells (seq_len, batch), phase 12's train shape and a batch-4 decode
+#: against a 1024-deep cache; argument bytes within P14_ARG_TOL of the
+#: allocator's rise, FLOPs equal to FlopCounterMode's on the card
+P14_FULL = ("gemma3-1b", "xlstm-350m")
+P14_SHAPES = (("train_2x1k", 1024, 2, "train"), ("decode_b4", 1024, 4, "decode"))
+P14_ARG_TOL, P14_STEPS = 0.01, 3
 
 
 def _phase(name: str, t0: float) -> float:
@@ -2701,6 +2740,181 @@ def _recurrent_phase(torch, np, K, t0) -> dict:
     return detail
 
 
+def _dryrun_sweeps(torch, t0) -> dict:
+    """Phase 14 (a): the three sweeps as subprocesses, then one line a cell."""
+    import os
+    import shutil
+
+    logs = ROOT / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    total = torch.cuda.get_device_properties(0).total_memory
+    jobs = -(-(os.cpu_count() or 1) // len(P14_SWEEPS))  # every core busy
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    procs = {}
+    try:
+        for name, flags in P14_SWEEPS.items():
+            out = ROOT / "build" / f"p14_{name.replace(' ', '_')}"
+            shutil.rmtree(out, ignore_errors=True)
+            tag = f"p14_dryrun_{name.replace(' ', '_')}"
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", P14_DRYRUN, *flags, "--jobs", str(jobs), "--out", str(out)],
+                cwd=ROOT, env=env, stdout=open(logs / f"{tag}.out", "w"),
+                stderr=open(logs / f"{tag}.err", "w")), out, tag)
+        codes = {name: p.wait(timeout=P14_WAIT_S) for name, (p, _, _) in procs.items()}
+    finally:
+        for p, _, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"[chip_smoke]   dry-run sweeps ({jobs} jobs each): exit codes {codes}; card "
+          f"total_memory {total} B ({total / 2**30:.2f} GiB), HBM_BYTES "
+          f"{_mesh_constants()['HBM_BYTES']} B")
+    if any(codes.values()):
+        raise AssertionError(f"phase 14: a dry-run sweep failed: {codes}")
+    detail = {}
+    for name, (_, out, tag) in procs.items():
+        cells = [json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
+        if len(cells) != P14_CELLS or not all(c["ok"] for c in cells):
+            raise AssertionError(f"phase 14: sweep {name}: {len(cells)} cells, "
+                                 f"{sum(c['ok'] for c in cells)} ok")
+        keep = []
+        for c in cells:
+            mem, roof = c["memory"], c["roofline_s"]
+            fits = "fits" if mem["peak_bytes"] <= total else "DOES NOT FIT"
+            cost = ("no cost pass (skipped)" if c["cost_mode"] == "skipped" else
+                    f"compute {roof['compute']:.4g} s, memory {roof['memory']:.4g} s, "
+                    f"collective {roof['collective']:.4g} s: {c['bottleneck']} "
+                    f"({c['cost_mode']})")
+            print(f"[chip_smoke]   {name} {c['arch']}/{c['cell']}: args "
+                  f"{mem['argument_bytes'] / 2**30:.3f} GiB, peak "
+                  f"{mem['peak_bytes'] / 2**30:.2f} GiB of {total / 2**30:.2f} ({fits}); {cost}")
+            keep.append({k: c[k] for k in ("arch", "cell", "mesh", "cost_mode", "memory",
+                                           "roofline_s", "bottleneck", "collectives",
+                                           "flops_per_device", "bytes_per_device")})
+        detail[name] = keep
+        shutil.rmtree(out, ignore_errors=True)
+    _phase13("mesh costing sweeps (subprocesses)", t0)
+    return detail
+
+
+def _mesh_constants() -> dict:
+    from repro_torch.launch import mesh
+
+    return {k: getattr(mesh, k) for k in ("HBM_BYTES", "PEAK_FLOPS_BF16", "HBM_BW", "LINK_BW")}
+
+
+def _card_args(torch, spec, cfg, cell):
+    """``spec``'s args on the card: the adapter's init (random, from a seed),
+    AdamW's state, random tokens, a zero cache; the decode position as a
+    0-d int32 tensor (the reference's traced scalar)."""
+    from repro_torch.launch.steps import get_adapter
+    from repro_torch.optim import init_adamw
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    adapter = get_adapter(cfg)
+    params = adapter.init(gen, "cuda")
+    b, s = cell.global_batch, cell.seq_len
+    if cell.kind == "train":
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        return (params, init_adamw(params), {"inputs": tokens, "labels": labels})
+    token = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    pos = torch.zeros((), dtype=torch.int32, device="cuda")
+    return (params, adapter.init_cache(b, s, "cuda"), token, pos)
+
+
+def _dryrun_held(torch, card, t0) -> dict:
+    """Phase 14 (b): each P14_FULL arch's cells costed at make_host_mesh()
+    (whole depth) and run on the card: argument bytes against the
+    allocator's rise, FLOPs against FlopCounterMode's, temp bytes against
+    the peak's rise, step time against the roofline."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.common.types import ShapeCell
+    from repro_torch.configs import get_lm_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import input_specs
+
+    mesh = make_host_mesh()
+    detail = {}
+    for arch in P14_FULL:
+        cfg = get_lm_config(arch, "full")
+        for shape in P14_SHAPES:
+            cell = ShapeCell(*shape)
+            t_cost = time.perf_counter()
+            res = D.cost_cell(cfg, cell, mesh)
+            t_cost = time.perf_counter() - t_cost
+            spec = input_specs(cfg, cell, mesh)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            args = _card_args(torch, spec, cfg, cell)
+            torch.cuda.synchronize()
+            rise = torch.cuda.memory_allocated() - before
+            run = D._run_args(dataclasses.replace(spec, args=args), cell)
+            want = res["memory"]["argument_bytes"]
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            with FlopCounterMode(display=False) as fc:
+                out = spec.step_fn(*run)
+            torch.cuda.synchronize()
+            temp = torch.cuda.max_memory_allocated() - held
+            del out
+            step_ms = []
+            for _ in range(P14_STEPS):
+                t = time.perf_counter()
+                out = spec.step_fn(*run)
+                torch.cuda.synchronize()
+                step_ms.append(round((time.perf_counter() - t) * 1e3, 2))
+                del out
+            roof = res["roofline_s"]
+            bound_ms = max(roof["compute"], roof["memory"]) * 1e3
+            flops = fc.get_total_flops()
+            row = dict(args_predicted=want, args_allocated=rise,
+                       args_err=abs(rise - want) / want, flops_predicted=res["flops_per_device"],
+                       flops_card=flops, temp_predicted=res["memory"]["temp_bytes"],
+                       temp_card=temp, step_ms=step_ms, roofline_ms=bound_ms,
+                       roofline_share=bound_ms / min(step_ms), bottleneck=res["bottleneck"],
+                       cost_s=round(t_cost, 2), card=card)
+            detail[f"{arch}/{cell.name}"] = row
+            print(f"[chip_smoke]   {arch} FULL {cell.name} ({cell.global_batch} x "
+                  f"{cell.seq_len}), host mesh: args predicted {want} B, allocated {rise} B "
+                  f"({row['args_err']:.3%}); FLOPs predicted {res['flops_per_device']:.6g}, "
+                  f"FlopCounterMode on the card {flops:.6g}; temp predicted "
+                  f"{row['temp_predicted'] / 2**30:.2f} GiB, max_memory_allocated rise "
+                  f"{temp / 2**30:.2f} GiB; steps {step_ms} ms against the roofline's "
+                  f"{bound_ms:.3f} ms ({row['roofline_share']:.1%} of it, {res['bottleneck']}); "
+                  f"costed in {t_cost:.1f} s; {card}")
+            del args, run
+            torch.cuda.empty_cache()
+            if not row["args_err"] <= P14_ARG_TOL:
+                raise AssertionError(f"phase 14: {arch} {cell.name}: argument bytes predicted "
+                                     f"{want}, allocated {rise}")
+            if float(flops) != res["flops_per_device"]:
+                raise AssertionError(f"phase 14: {arch} {cell.name}: FLOPs predicted "
+                                     f"{res['flops_per_device']}, counted on the card {flops}")
+    _phase13("mesh costing held against the card", t0)
+    return detail
+
+
+def _dryrun_phase(torch, K, card, t0) -> dict:
+    """Phase 14 -> its detail.  Raises on the first failed check."""
+    K.reset_launch_counts()
+    detail = {"sweeps": _dryrun_sweeps(torch, time.perf_counter())}
+    detail["held"] = _dryrun_held(torch, card, time.perf_counter())
+    launches = K.launch_counts()
+    print(f"[chip_smoke]   registry kernel launches over phase 14's in-process work: {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 14: a registry kernel ran on the LM path: {launches}")
+    detail["launches"] = launches
+    _phase13("mesh costing", t0)
+    return detail
+
+
 def main() -> int:
     try:
         import torch
@@ -2710,11 +2924,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run it from the repository",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
     import numpy as np
     import torch.nn.functional as F
 
@@ -2986,6 +3195,9 @@ def main() -> int:
     del engine, models, params, vae_params
     torch.cuda.empty_cache()
     detail["lm_recurrent"] = _recurrent_phase(torch, np, K, time.perf_counter())
+
+    # 14. mesh costing: the dry run, and its model held against the card -------------------------
+    detail["dryrun"] = _dryrun_phase(torch, K, card, time.perf_counter())
 
     kernels = [
         _kernel_entry(name, src, rep, launches[name], totals[name])

@@ -15,31 +15,41 @@ def _is_namedtuple(tree: Any) -> bool:
     return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
 
 
-def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any,
+             is_leaf: Callable[[Any], bool] | None = None) -> Any:
     """``fn`` over the leaves of ``tree`` (and the matching leaves of ``rest``),
-    in a tree of the same structure and container types."""
+    in a tree of the same structure and container types.  A node of
+    ``tree`` for which ``is_leaf`` holds is a leaf, as in ``jax.tree.map``."""
     if tree is None:
         return None
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
     if _is_namedtuple(tree):
-        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+        return type(tree)(*(tree_map(fn, *xs, is_leaf=is_leaf) for xs in zip(tree, *rest)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+        return type(tree)(tree_map(fn, *xs, is_leaf=is_leaf) for xs in zip(tree, *rest))
     return fn(tree, *rest)
 
 
-def tree_leaves_with_path(tree: Any, path: str = "") -> list[tuple[str, Any]]:
+def tree_leaves_with_path(tree: Any, path: str = "",
+                          is_leaf: Callable[[Any], bool] | None = None) -> list[tuple[str, Any]]:
     """(key string, leaf) pairs in JAX's flatten order."""
     if tree is None:
         return []
+    if is_leaf is not None and is_leaf(tree):
+        return [(path, tree)]
     if isinstance(tree, dict):
-        return [kv for k in sorted(tree) for kv in tree_leaves_with_path(tree[k], f"{path}[{k!r}]")]
+        return [kv for k in sorted(tree)
+                for kv in tree_leaves_with_path(tree[k], f"{path}[{k!r}]", is_leaf)]
     if _is_namedtuple(tree):
         return [kv for f, v in zip(tree._fields, tree)
-                for kv in tree_leaves_with_path(v, f"{path}.{f}")]
+                for kv in tree_leaves_with_path(v, f"{path}.{f}", is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [kv for i, v in enumerate(tree) for kv in tree_leaves_with_path(v, f"{path}[{i}]")]
+        return [kv for i, v in enumerate(tree)
+                for kv in tree_leaves_with_path(v, f"{path}[{i}]", is_leaf)]
     return [(path, tree)]
 
 

@@ -157,6 +157,31 @@ SHAPE_CELLS = (
     ShapeCell("long_500k", 524_288, 1, "decode"),
 )
 
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A named mesh of ``prod(axis_sizes)`` devices with no device in it:
+    the counterpart of ``jax.sharding.AbstractMesh``, read by the partition
+    specs (``common/sharding.py``) and the dry run (``launch/dryrun.py``)."""
+
+    axis_sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"mesh sizes {self.axis_sizes} and names {self.axis_names} differ")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        out = 1
+        for n in self.axis_sizes:
+            out *= n
+        return out
+
 # ---------------------------------------------------------------------------
 # Diffusion configs
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""Arch adapters: one (init, forward, decode, init_cache) surface over the
-LM families, plus the train / prefill / decode step builders the trainer
-and the server share.  The port's copy of ``repro/launch/steps.py``,
-off-mesh: the transformer family (dense, moe, audio, vlm), xlstm (``ssm``)
-and hymba (``hybrid``).
+"""Arch adapters: one (init, forward, decode, init_cache, pspecs) surface
+over the LM families, plus the train / prefill / decode step builders the
+trainer, the server and the dry run share.  The port's copy of
+``repro/launch/steps.py``: the transformer family (dense, moe, audio,
+vlm), xlstm (``ssm``) and hymba (``hybrid``).  The steps run off-mesh;
+``pspecs``, ``cache_pspecs`` and :func:`opt_pspecs` give the reference's
+mesh layout, which ``launch/dryrun.py`` costs.
 
 A train step differentiates with autograd and updates with the port's
 AdamW (:func:`repro_torch.optim.adamw_update`); the loss is the mean token
@@ -16,6 +18,7 @@ from typing import Any, Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common.sharding import P
 from repro_torch.common.tree import tree_leaves, tree_unflatten
 from repro_torch.common.types import LMConfig
 from repro_torch.models import hymba as HY
@@ -37,9 +40,15 @@ class ArchAdapter:
     forward: Callable[..., tuple[torch.Tensor, torch.Tensor]]  # (params, inputs, remat)
     decode: Callable[..., tuple[torch.Tensor, Any]]  # (params, cache, token, pos)
     init_cache: Callable[..., Any]  # (batch, max_len, device)
+    pspecs: Callable[..., Any]  # (model_size, fsdp_axis)
+    cache_pspecs: Callable[..., Any]  # (batch_axes, seq_axis, model_size)
     # backbone/head split for the chunked train loss
     forward_hidden: Callable[..., tuple[torch.Tensor, torch.Tensor]]  # (params, inputs, remat)
     head_logits: Callable[..., torch.Tensor]  # (params, h_chunk)
+
+    @property
+    def takes_embeddings(self) -> bool:
+        return self.cfg.frontend_stub is not None
 
 
 def get_adapter(cfg: LMConfig) -> ArchAdapter:
@@ -50,6 +59,8 @@ def get_adapter(cfg: LMConfig) -> ArchAdapter:
             forward=lambda p, x, remat=False: X.xlstm_forward(cfg, p, x, remat=remat),
             decode=lambda p, c, tok, pos: X.xlstm_decode(cfg, p, c, tok, pos),
             init_cache=lambda batch, max_len, device: X.init_state(cfg, batch, device),
+            pspecs=lambda ms, fsdp="data": X.xlstm_pspecs(cfg, ms, fsdp),
+            cache_pspecs=lambda ba, sa, ms: X.state_pspecs(cfg, ba, ms),
             forward_hidden=lambda p, x, remat=False: X.xlstm_forward_hidden(
                 cfg, p, x, remat=remat),
             head_logits=lambda p, h: X.xlstm_head_logits(cfg, p, h),
@@ -61,6 +72,8 @@ def get_adapter(cfg: LMConfig) -> ArchAdapter:
             forward=lambda p, x, remat=False: HY.hymba_forward(cfg, p, x, remat=remat),
             decode=lambda p, c, tok, pos: HY.hymba_decode(cfg, p, c, tok, pos),
             init_cache=lambda batch, max_len, device: HY.init_cache(cfg, batch, max_len, device),
+            pspecs=lambda ms, fsdp="data": HY.hymba_pspecs(cfg, ms, fsdp),
+            cache_pspecs=lambda ba, sa, ms: HY.cache_pspecs(cfg, ba, ms),
             forward_hidden=lambda p, x, remat=False: HY.hymba_forward_hidden(
                 cfg, p, x, remat=remat),
             head_logits=lambda p, h: HY.hymba_head_logits(cfg, p, h),
@@ -71,6 +84,8 @@ def get_adapter(cfg: LMConfig) -> ArchAdapter:
         forward=lambda p, x, remat=False: T.lm_forward(cfg, p, x, remat=remat),
         decode=lambda p, c, tok, pos: T.lm_decode(cfg, p, c, tok, pos),
         init_cache=lambda batch, max_len, device: T.init_cache(cfg, batch, max_len, device),
+        pspecs=lambda ms, fsdp="data": T.lm_pspecs(cfg, ms, fsdp),
+        cache_pspecs=lambda ba, sa, ms: T.cache_pspecs(cfg, ba, sa, ms),
         forward_hidden=lambda p, x, remat=False: T.lm_forward_hidden(cfg, p, x, remat=remat),
         head_logits=lambda p, h: T.lm_head_logits(cfg, p, h),
     )
@@ -187,3 +202,16 @@ def make_decode_step(adapter: ArchAdapter):
         return adapter.decode(params, cache, token, pos)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Optimizer sharding mirrors the params
+# ---------------------------------------------------------------------------
+
+
+def opt_pspecs(param_specs: Any) -> AdamWState:
+    return AdamWState(
+        step=P(),
+        m=param_specs,
+        v=param_specs,
+    )

@@ -1,6 +1,8 @@
 """Hymba-style hybrid-head model: parallel attention + Mamba(SSM) heads.
 
-The port's copy of ``repro/models/hymba.py``, off-mesh.  Each layer
+The port's copy of ``repro/models/hymba.py``.  It runs off-mesh;
+``hymba_pspecs`` / ``cache_pspecs`` give the reference's mesh layout for
+the dry run.  Each layer
 computes sliding-window GQA attention and a selective SSM (Mamba-1 style,
 state size ``cfg.ssm_state``) over the same normed input, averages the two
 paths (arXiv:2411.13676), then applies a gated FFN.  Every layer uses the
@@ -22,12 +24,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common.sharding import P
 from repro_torch.common.types import AttnSpec, LMConfig, local
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import _dense_init, torch_dtype
-from repro_torch.models.transformer import _stack
+from repro_torch.models.transformer import _stack, _unstack
 from repro_torch.models.xlstm import _embed_in, _layer
 
 Params = dict[str, Any]
@@ -124,10 +127,13 @@ def _ssm_scan(p: Params, xc: torch.Tensor, h0: torch.Tensor):
     dbx = dt[..., None] * bmat[..., None, :].float() * xc[..., None].float()
     cf = cmat.float()
 
+    # one step a position: unbind's backward is one stack (a select's is a
+    # [B, S, inner, N] zeros tensor a step), and the bmm is the very product
+    # einsum("bin,bn->bi") dispatches, without its eight views
     h, ys = h0, []
-    for t in range(xc.shape[1]):
-        h = da[:, t] * h + dbx[:, t]
-        ys.append(torch.einsum("bin,bn->bi", h, cf[:, t]))
+    for da_t, dbx_t, c_t in zip(da.unbind(1), dbx.unbind(1), cf.unbind(1)):
+        h = da_t * h + dbx_t
+        ys.append(torch.bmm(h, c_t.unsqueeze(2))[..., 0])
     y = torch.stack(ys, dim=1) + xc.float() * p["d_skip"]
     return y.to(xc.dtype), h
 
@@ -210,8 +216,7 @@ def hymba_forward_hidden(cfg: LMConfig, params: Params, tokens: torch.Tensor, *,
                          remat: bool = False):
     h = _embed_in(cfg, params, tokens)
     recompute = remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
-        p = _layer(params, i)
+    for p in _unstack(params["blocks"]):
         h = (checkpoint(block_apply, cfg, p, h, use_reentrant=False) if recompute
              else block_apply(cfg, p, h))
     h = L.apply_norm(cfg, params["final_norm"], h)
@@ -260,3 +265,69 @@ def hymba_decode(cfg: LMConfig, params: Params, cache: HymbaCache, token: torch.
         h, _ = block_decode(cfg, _layer(params, i), h, _layer_cache(cache, i), int(pos))
     h = L.apply_norm(cfg, params["final_norm"], h)
     return (h @ params["lm_head"])[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# partition specs
+# ---------------------------------------------------------------------------
+
+
+def hymba_pspecs(cfg: LMConfig, model_size: int, fsdp_axis: str | None = "data") -> Params:
+    """Weight shardings, :func:`init_hymba`'s tree leaf for leaf."""
+    inner = _inner(cfg)
+    m = "model" if inner % model_size == 0 else None
+    qm = "model" if cfg.q_dim % model_size == 0 else None
+    kvm = "model" if cfg.kv_dim % model_size == 0 else None
+    fm = "model" if cfg.d_ff % model_size == 0 else None
+    vocab_ok = cfg.vocab_size % model_size == 0
+    fs = fsdp_axis  # FSDP axis for the d_model dim (2D weight sharding)
+
+    def norm():
+        return {"scale": P(None, None)} | (
+            {"bias": P(None, None)} if cfg.norm == "layernorm" else {})
+
+    blk = {
+        "norm1": norm(),
+        "norm2": norm(),
+        "attn": {
+            "wq": P(None, fs, qm),
+            "wk": P(None, fs, kvm),
+            "wv": P(None, fs, kvm),
+            "wo": P(None, qm, fs),
+        },
+        "ssm": {
+            "w_in": P(None, fs, m),
+            "conv_w": P(None, None, m),
+            "conv_b": P(None, m),
+            "w_xdb": P(None, m, None),
+            "w_dt": P(None, None, m),
+            "b_dt": P(None, m),
+            "a_log": P(None, m, None),
+            "d_skip": P(None, m),
+            "w_out": P(None, m, fs),
+        },
+        "attn_norm": norm(),
+        "ssm_norm": norm(),
+        "mlp": {"w_in": P(None, fs, fm), "w_out": P(None, fm, fs)}
+        | ({"w_gate": P(None, fs, fm)} if cfg.glu else {}),
+    }
+    return {
+        "embed": P("model" if vocab_ok else None, fs),
+        "blocks": blk,
+        "final_norm": {"scale": P(None)} | ({"bias": P(None)} if cfg.norm == "layernorm" else {}),
+        "lm_head": P(fs, "model" if vocab_ok else None),
+    }
+
+
+def cache_pspecs(cfg: LMConfig, batch_axes: tuple[str, ...], model_size: int) -> HymbaCache:
+    """Cache sharding, :func:`init_cache`'s tree: batch over the data axes,
+    head_dim and the SSM's inner dim over "model" where they divide."""
+    b = batch_axes if batch_axes else None
+    inner = _inner(cfg)
+    m = "model" if inner % model_size == 0 else None
+    dh = "model" if cfg.head_dim % model_size == 0 else None
+    kv = P(None, b, None, None, dh)
+    return HymbaCache(
+        kv=KVCache(k=kv, v=kv),
+        ssm=SSMState(conv=P(None, b, None, m), h=P(None, b, m, None)),
+    )

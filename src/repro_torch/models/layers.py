@@ -38,6 +38,8 @@ def scalar(value: float, like: torch.Tensor) -> float:
 
 
 def _dense_init(gen: torch.Generator, shape, dtype, device, scale: float | None = None):
+    if torch.device(device).type == "meta":  # no values to draw (the dry run's structs)
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * std

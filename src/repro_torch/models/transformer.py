@@ -1,6 +1,8 @@
 """Decoder-only LM transformer for the dense, moe, audio and vlm families.
 
-The port's copy of ``repro/models/transformer.py``, off-mesh.  The layer
+The port's copy of ``repro/models/transformer.py``.  It runs off-mesh;
+``lm_pspecs`` / ``cache_pspecs`` give the reference's mesh layout, which
+the dry run (``launch/dryrun.py``) costs.  The layer
 stack keeps the reference's pattern-unit layout: the config's repeating
 layer pattern (gemma3's 5 local + 1 global) forms a unit, the full units'
 parameters are stacked on a leading axis (``blocks.slotJ``), and the
@@ -20,7 +22,8 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common.tree import tree_map
+from repro_torch.common.sharding import P, is_spec
+from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.common.types import AttnSpec, LMConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
@@ -194,6 +197,17 @@ def _unit(cfg: LMConfig, params: Params, u: int) -> Params:
     return tree_map(lambda x: x[u], params["blocks"])
 
 
+def _unstack(blocks: Params) -> list[Params]:
+    """Every entry of the stacked leaves' leading axis (a unit, or a layer)
+    as views, one ``unbind`` a leaf: its backward is one stack, where a
+    view a unit (``x[u]``) costs a zeros tensor of the whole stack a unit."""
+    leaves = tree_leaves(blocks)
+    if not leaves:
+        return []
+    split = [x.unbind(0) for x in leaves]
+    return [tree_unflatten(blocks, [x[u] for x in split]) for u in range(len(split[0]))]
+
+
 def lm_forward_hidden(
     cfg: LMConfig, params: Params, inputs: torch.Tensor, *, remat: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -210,8 +224,7 @@ def lm_forward_hidden(
 
     recompute = remat and torch.is_grad_enabled()
     auxs = []
-    for u in range(n_units):
-        unit_p = _unit(cfg, params, u)
+    for unit_p in _unstack(params["blocks"]):
         if recompute:
             h, a = checkpoint(unit_fn, h, unit_p, use_reentrant=False)
         else:
@@ -292,3 +305,119 @@ def lm_prefill(
     """Prefill: returns last-position logits only (serving semantics)."""
     logits, _ = lm_forward(cfg, params, inputs)
     return logits[:, -1], torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+# ---------------------------------------------------------------------------
+# Partition specs
+# ---------------------------------------------------------------------------
+
+
+def _block_pspecs(cfg: LMConfig, model_size: int, fsdp_axis: str | None = "data") -> Params:
+    """2D weight sharding: TP dims over "model", the d_model dim over the
+    data axis (FSDP / ZeRO-3: per-device residency is P / (data * model))."""
+    fs = fsdp_axis
+
+    attn = {
+        "wq": P(fs, "model"),
+        "wk": P(fs, "model"),
+        "wv": P(fs, "model"),
+        "wo": P("model", fs),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = P(None)
+        attn["k_norm"] = P(None)
+    p: Params = {
+        "norm1": {"scale": P(None)},
+        "norm2": {"scale": P(None)},
+        "attn": attn,
+    }
+    if cfg.norm == "layernorm":
+        p["norm1"]["bias"] = P(None)
+        p["norm2"]["bias"] = P(None)
+    if cfg.post_norm:
+        p["norm1_post"] = dict(p["norm1"])
+        p["norm2_post"] = dict(p["norm2"])
+    if cfg.moe is not None:
+        ep = cfg.moe.num_experts % model_size == 0 and cfg.moe.shard_mode != "tp"
+        if cfg.moe.shard_mode == "ep" and not ep:
+            raise ValueError("EP requested but experts don't divide model axis")
+        if ep:  # expert parallel: the experts over "model"
+            p["moe"] = {
+                "router": P(fs, None),
+                "w_in": P("model", fs, None),
+                "w_gate": P("model", fs, None),
+                "w_out": P("model", None, fs),
+            }
+        else:  # tensor parallel: every expert's d_expert over "model"
+            p["moe"] = {
+                "router": P(fs, None),
+                "w_in": P(None, fs, "model"),
+                "w_gate": P(None, fs, "model"),
+                "w_out": P(None, "model", fs),
+            }
+    else:
+        p["mlp"] = {
+            "w_in": P(fs, "model"),
+            "w_out": P("model", fs),
+        }
+        if cfg.glu:
+            p["mlp"]["w_gate"] = P(fs, "model")
+    return p
+
+
+def lm_pspecs(cfg: LMConfig, model_size: int, fsdp_axis: str | None = "data") -> Params:
+    """Weight shardings, :func:`init_lm`'s tree leaf for leaf.
+    ``fsdp_axis=None`` drops the ZeRO-3 dimension: weights replicate over
+    the data axes (the serving layout, valid when TP-sharded params fit)."""
+    n_units, n_tail = _pattern_split(cfg)
+    bp = _block_pspecs(cfg, model_size, fsdp_axis)
+
+    def add_leading(tree):
+        return tree_map(lambda s: P(None, *s), tree, is_leaf=is_spec)
+
+    vocab_ok = cfg.vocab_size % model_size == 0
+    specs: Params = {
+        "embed": P("model" if vocab_ok else None, fsdp_axis),
+        "blocks": {f"slot{j}": add_leading(bp) for j in range(len(cfg.pattern))} if n_units else {},
+        "tail": [bp for _ in range(n_tail)],
+        "final_norm": {"scale": P(None)},
+    }
+    if cfg.norm == "layernorm":
+        specs["final_norm"]["bias"] = P(None)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, fsdp_axis, "model" if vocab_ok else None)
+    return specs
+
+
+def cache_pspecs(
+    cfg: LMConfig,
+    batch_axes: tuple[str, ...],
+    seq_axis: str | None,
+    model_size: int,
+) -> Any:
+    """Cache sharding, :func:`init_cache`'s tree: each [B, S, Hkv, Dh].
+
+    Batch shards over the data axes; head_dim over "model" (KV head counts
+    like 1 / 4 / 5 never divide a 16-way model axis, but every assigned
+    head_dim does).  With ``seq_axis`` set, the sequence axis of *global*
+    layers' caches shards over it.
+    """
+    n_units, n_tail = _pattern_split(cfg)
+    dh_axis = "model" if cfg.head_dim % model_size == 0 else None
+
+    def one(spec: AttnSpec, lead: bool) -> KVCache:
+        seq = seq_axis if (spec.kind == "global" and seq_axis) else None
+        batch = batch_axes if batch_axes else None
+        # a mesh axis may appear only once per spec: when the sequence dim
+        # takes "model" (flash-decoding layout), head_dim replicates
+        dh = None if seq == "model" else dh_axis
+        s = P(batch, seq, None, dh)
+        if lead:
+            s = P(None, *s)
+        return KVCache(k=s, v=s)
+
+    blocks = {
+        f"slot{j}": one(spec, True) for j, spec in enumerate(cfg.pattern)
+    } if n_units else {}
+    tail = [one(cfg.pattern[j], False) for j in range(n_tail)]
+    return {"blocks": blocks, "tail": tail}

@@ -1,6 +1,8 @@
 """xLSTM (mLSTM-block) language model.
 
-The port's copy of ``repro/models/xlstm.py``, off-mesh.  The mLSTM
+The port's copy of ``repro/models/xlstm.py``.  It runs off-mesh;
+``xlstm_pspecs`` / ``state_pspecs`` give the reference's mesh layout for
+the dry run.  The mLSTM
 recurrence with exponential gating and max-stabilizer (Beck et al.,
 arXiv:2405.04517):
 
@@ -31,11 +33,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common.sharding import P
 from repro_torch.common.tree import tree_map
 from repro_torch.common.types import LMConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import _dense_init, torch_dtype
-from repro_torch.models.transformer import _stack
+from repro_torch.models.transformer import _stack, _unstack
 
 Params = dict[str, Any]
 
@@ -226,8 +229,7 @@ def xlstm_forward_hidden(cfg: LMConfig, params: Params, tokens: torch.Tensor, *,
                          chunk_size: int = 256, remat: bool = False):
     h = _embed_in(cfg, params, tokens)
     recompute = remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
-        p = _layer(params, i)
+    for p in _unstack(params["blocks"]):
         if recompute:
             h = checkpoint(block_apply, cfg, p, h, chunk_size, use_reentrant=False)
         else:
@@ -264,3 +266,48 @@ def xlstm_decode(cfg: LMConfig, params: Params, state: MLSTMState, token: torch.
             dst[i].copy_(src)
     h = L.apply_norm(cfg, params["final_norm"], h)
     return (h @ params["lm_head"])[:, 0], state
+
+
+# ---------------------------------------------------------------------------
+# partition specs
+# ---------------------------------------------------------------------------
+
+
+def xlstm_pspecs(cfg: LMConfig, model_size: int, fsdp_axis: str | None = "data") -> Params:
+    """Weight shardings, :func:`init_xlstm`'s tree leaf for leaf."""
+    inner_ok = _inner(cfg) % model_size == 0
+    m = "model" if inner_ok else None
+    vocab_ok = cfg.vocab_size % model_size == 0
+    fs = fsdp_axis  # FSDP axis for the d_model dim (2D weight sharding)
+    blk = {
+        "norm": {"scale": P(None, None)},
+        "wq": P(None, fs, m),
+        "wk": P(None, fs, m),
+        "wv": P(None, fs, m),
+        "w_igate": P(None, fs, None),
+        "w_fgate": P(None, fs, None),
+        "b_fgate": P(None, None),
+        "b_igate": P(None, None),
+        "w_ogate": P(None, fs, m),
+        "w_down": P(None, m, fs),
+        "out_norm": {"scale": P(None, None)},
+    }
+    if cfg.norm == "layernorm":
+        blk["norm"]["bias"] = P(None, None)
+        blk["out_norm"]["bias"] = P(None, None)
+    return {
+        "embed": P("model" if vocab_ok else None, fs),
+        "blocks": blk,
+        "final_norm": {"scale": P(None)} | ({"bias": P(None)} if cfg.norm == "layernorm" else {}),
+        "lm_head": P(fs, "model" if vocab_ok else None),
+    }
+
+
+def state_pspecs(cfg: LMConfig, batch_axes: tuple[str, ...], model_size: int) -> MLSTMState:
+    """State sharding, :func:`init_state`'s tree: batch over the data axes."""
+    b = batch_axes if batch_axes else None
+    return MLSTMState(
+        c=P(None, b, None, None, None),
+        n=P(None, b, None, None),
+        m=P(None, b, None),
+    )

@@ -53,13 +53,15 @@ def test_chip_smoke_starts_only_the_port():
     """Every module chip_smoke.py runs with ``python -m`` is the port's, and
     importing the script (not running it) loads no JAX and no repro."""
     text = CHIP_SMOKE.read_text()
-    modules = re.findall(r'^(P8_SERVER|P9_ROUTER|P12_TRAIN) = "([\w.]+)"', text, re.M)
+    modules = re.findall(r'^(P8_SERVER|P9_ROUTER|P12_TRAIN|P14_DRYRUN) = "([\w.]+)"', text,
+                         re.M)
     assert modules == [("P8_SERVER", "repro_torch.launch.serve"),
                        ("P9_ROUTER", "repro_torch.launch.router"),
-                       ("P12_TRAIN", "repro_torch.launch.train")]
+                       ("P12_TRAIN", "repro_torch.launch.train"),
+                       ("P14_DRYRUN", "repro_torch.launch.dryrun")]
     assert re.findall(r'"-m", ([\w.]+)', text) == [
         "P8_SERVER", "P9_ROUTER", "P12_TRAIN", "P12_TRAIN", "P8_SERVER",
-        "P12_TRAIN", "P12_TRAIN", "P8_SERVER"]
+        "P12_TRAIN", "P12_TRAIN", "P8_SERVER", "P14_DRYRUN"]
     code = (
         "import importlib.util, sys\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(CHIP_SMOKE)!r})\n"
