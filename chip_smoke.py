@@ -168,7 +168,24 @@ version.  Phases:
    rise when the args are placed, the predicted FLOPs equal to
    ``FlopCounterMode`` over the same step on the card; printed beside,
    the predicted temp bytes against the ``max_memory_allocated`` rise and
-   the step time against the roofline's ``max(compute, memory)``.
+   the step time against the roofline's ``max(compute, memory)``;
+15. distributed train (no kernel of ``KERNEL_REGISTRY`` may launch in a
+   rank; each line names the card and its power limit): (a) ``python
+   examples/torch_distributed_smoke.py`` as a user starts it (8 ranks on
+   a (4, 2) mesh, 6 steps, a checkpoint, an elastic restart onto (3, 2)
+   for 3 more) and the same example with ``--device cpu`` on the card's
+   host, started together: the 9 losses within 1e-4 relative; (b) gemma3-1b at its
+   full width (bf16, seed 0) on 8 ranks of a (4, 2) mesh sharing the card,
+   3 steps at 8 x 64 tokens under ``remat``: each loss within 2e-2 of the
+   single-process step on the card from the same weights, each rank's
+   resident bytes within 1 % of the allocator's rise, its peak memory, the
+   step time (slowest rank), the collective bytes by kind beside
+   ``collectives_from_specs``, the backend and the bytes staged through
+   the host; (c) mixtral-8x22b and qwen3-moe-235b-a22b SMOKE (experts
+   stored tensor- and expert-parallel) at (4, 2) on the card against the
+   single-process step on the CPU, within 1e-4; (d) where 4 cards are
+   visible, (b) at (2, 2) on ``nccl`` with a card a rank, checkpointed
+   and restarted onto (1, 2).
 
 Run from the repository root: ``python3 chip_smoke.py``.  It prints the
 per-kernel JSON line, the card line and, last, the ``{"ok": true, ...}``
@@ -430,6 +447,22 @@ P14_CELLS, P14_WAIT_S = 35, 600
 P14_FULL = ("gemma3-1b", "xlstm-350m")
 P14_SHAPES = (("train_2x1k", 1024, 2, "train"), ("decode_b4", 1024, 4, "decode"))
 P14_ARG_TOL, P14_STEPS = 0.01, 3
+#: phase 15 (a): the distributed example as a user starts it, on the card and
+#: on CPU ranks of the card's host (the same weights: the port's init draws
+#: on the CPU's generator), its 9 losses within 1e-4 relative
+P15_EXAMPLE = "examples/torch_distributed_smoke.py"
+P15_EXAMPLE_TOL, P15_WAIT_S = 1e-4, 400
+#: phase 15 (b): gemma3-1b at its full width on a mesh of ranks sharing the
+#: card, 3 steps of 8 x 64 tokens (``token_batch`` rows of 65), each loss
+#: within 2e-2 relative of the single-process step (bf16 sums in another
+#: order over 4 data shards); resident bytes within 1 % of the allocator
+P15_FULL_ARCH, P15_FULL_MESH, P15_FULL_STEPS, P15_FULL_TOL = "gemma3-1b", (4, 2), 3, 2e-2
+P15_BATCH, P15_SEQ, P15_ARG_TOL = 8, 65, 0.01
+#: phase 15 (c): the MoE layer's mesh branch, experts stored TP and EP
+P15_MOE, P15_MOE_STEPS, P15_MOE_TOL = ("mixtral-8x22b", "qwen3-moe-235b-a22b"), 2, 1e-4
+#: phase 15 (d), where 4 cards are visible: (b) on nccl, then a restart
+P15_NCCL_MESH = (2, 2)
+P15_RENDEZVOUS = "build/p15_rendezvous"
 
 
 def _phase(name: str, t0: float) -> float:
@@ -2915,6 +2948,268 @@ def _dryrun_phase(torch, K, card, t0) -> dict:
     return detail
 
 
+def _p15_rank(device, jobs):
+    """One rank of phase 15's worlds: ``train_on_mesh``, with the rank's
+    registry launch counts (a kernel on the LM path fails the phase)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import distributed as D
+
+    results = D.train_on_mesh(device, jobs)
+    for r in results:
+        r["launches"] = K.launch_counts()
+    return results
+
+
+def _rounded(d: dict) -> dict:
+    return {k: round(v, 2) for k, v in d.items()}
+
+
+def _p15_launches(where: str, ranks: list) -> None:
+    launched = {k: v for r in ranks for res in r for k, v in res["launches"].items() if v}
+    if launched:
+        raise AssertionError(f"phase 15 {where}: a registry kernel ran on the LM path: {launched}")
+
+
+def _p15_single(torch, arch, variant, device, steps, remat) -> list[float]:
+    """The single-process step's losses from the ranks' weights (the init
+    from seed 0 on the CPU's generator) on the ranks' batches."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import get_lm_config
+    from repro_torch.data.pipeline import DataConfig, token_batch
+    from repro_torch.launch.distributed import MeshJob
+    from repro_torch.launch.steps import get_adapter, make_train_step
+    from repro_torch.optim import init_adamw
+
+    cfg = get_lm_config(arch, variant)
+    adapter = get_adapter(cfg)
+    params = tree_map(lambda x: x.to(device),
+                      adapter.init(torch.Generator().manual_seed(0), "cpu"))
+    opt = init_adamw(params)
+    step = make_train_step(adapter, MeshJob.opt, remat=remat)
+    dc = DataConfig(global_batch=P15_BATCH, seq_len=P15_SEQ, vocab_size=cfg.vocab_size)
+    losses = []
+    for s in range(steps):
+        nb = token_batch(dc, s)
+        batch = {"inputs": torch.from_numpy(nb["tokens"]).to(device),
+                 "labels": torch.from_numpy(nb["labels"]).to(device)}
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))
+    del params, opt
+    return losses
+
+
+def _example_phase(card, t0) -> dict:
+    """Phase 15 (a): the example on the card and on CPU ranks, started
+    together (sooner done, on an 8-core H100 host, than one after the
+    other)."""
+    import os
+    import re
+    import shutil
+
+    logs = ROOT / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs, files = {}, []
+    try:
+        for dev in ("cuda", "cpu"):
+            ckpt = ROOT / "build" / f"p15_example_ckpt_{dev}"
+            shutil.rmtree(ckpt, ignore_errors=True)
+            files += [open(logs / f"p15_example_{dev}.{ext}", "w") for ext in ("out", "err")]
+            procs[dev] = subprocess.Popen(
+                [sys.executable, P15_EXAMPLE, *(["--device", "cpu"] if dev == "cpu" else []),
+                 "--ckpt-dir", str(ckpt)], cwd=ROOT, env=env, stdout=files[-2], stderr=files[-1])
+        codes, wall, t_start = {}, {}, time.perf_counter()
+        while len(codes) < len(procs):
+            for dev, p in procs.items():
+                if dev not in codes and p.poll() is not None:
+                    codes[dev], wall[dev] = p.returncode, time.perf_counter() - t_start
+            if time.perf_counter() - t_start > P15_WAIT_S:
+                raise AssertionError(f"phase 15 (a): the example ran past {P15_WAIT_S} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+        for dev in procs:
+            shutil.rmtree(ROOT / "build" / f"p15_example_ckpt_{dev}", ignore_errors=True)
+    if any(codes.values()):
+        raise AssertionError(f"phase 15 (a): the example exited {codes}; see "
+                             "chiprun_out/p15_example_*.err")
+    outs = {dev: (logs / f"p15_example_{dev}.out").read_text() for dev in procs}
+    losses = {dev: [float(v) for v in re.findall(r"step \d+: loss=(\S+)", out)]
+              for dev, out in outs.items()}
+    if any(len(v) != 9 for v in losses.values()):
+        raise AssertionError(f"phase 15 (a): losses {losses}")
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    print(f"[chip_smoke]   example on the card: {outs['cuda'].splitlines()[0]} | "
+          f"{outs['cuda'].splitlines()[-1]}; wall s (started together) {_rounded(wall)}; "
+          f"{card}")
+    print(f"[chip_smoke]   example losses, card {losses['cuda']} against CPU ranks "
+          f"{losses['cpu']}: max relative {max(errs):.3g} (tol {P15_EXAMPLE_TOL}); {card}")
+    if not max(errs) <= P15_EXAMPLE_TOL:
+        raise AssertionError(f"phase 15 (a): card and CPU losses differ by {max(errs)}")
+    _phase13("distributed example (card and CPU ranks)", t0)
+    return dict(losses=losses, max_rel_err=max(errs), wall_s=wall,
+                first_line=outs["cuda"].splitlines()[0])
+
+
+def _mesh_full(torch, card, mesh, backend, t0, save=None, restart=None, also=()) -> dict:
+    """Phase 15 (b) / (d): gemma3-1b FULL on ``mesh`` over ``backend``'s
+    ranks against the single-process step on the card; ``restart`` = (the
+    new mesh, its backend, the plan's global batch) restores ``save`` onto
+    a second world; the jobs ``also`` run in the same world after it (one
+    spawn fewer), their rank-0 results under ``"also"``."""
+    from repro_torch.common.sharding import tree_shard_bytes
+    from repro_torch.common.types import Mesh, ShapeCell
+    from repro_torch.configs import get_lm_config
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch.dryrun import collectives_from_specs
+    from repro_torch.launch.specs import params_struct
+    from repro_torch.launch.steps import get_adapter, opt_pspecs
+    from repro_torch.optim import init_adamw
+
+    t = time.perf_counter()
+    want = _p15_single(torch, P15_FULL_ARCH, "full", "cuda", P15_FULL_STEPS, remat=True)
+    single_s = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    job = D.MeshJob(P15_FULL_ARCH, mesh, (0, P15_FULL_STEPS), P15_BATCH, seq_len=P15_SEQ,
+                    variant="full", remat=True, save=save)
+    t = time.perf_counter()
+    ranks = D.run_ranks(_p15_rank, ([job, *also],), backend, str(ROOT / P15_RENDEZVOUS),
+                        P15_WAIT_S)
+    world_s = time.perf_counter() - t
+    _p15_launches(f"{mesh}", ranks)
+    res = [r[0] for r in ranks]
+    losses = res[0]["losses"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    step_s = [max(r["step_s"][i] for r in res) for i in range(P15_FULL_STEPS)]
+    cfg = get_lm_config(P15_FULL_ARCH, "full")
+    adapter = get_adapter(cfg)
+    specs = adapter.pspecs(mesh[1])
+    m = Mesh(mesh, ("data", "model"))
+    meta = params_struct(adapter)
+    resident = (tree_shard_bytes(m, specs, meta)
+                + tree_shard_bytes(m, opt_pspecs(specs), init_adamw(meta)))
+    model = collectives_from_specs(cfg, ShapeCell("p15", P15_SEQ - 1, P15_BATCH, "train"), m,
+                                   specs)
+    counted: dict[str, int] = {}
+    for (kind, _, _), n in res[0]["counts"].items():
+        counted[kind] = counted.get(kind, 0) + n
+    print(f"[chip_smoke]   gemma3-1b FULL {mesh} over {len(res)} ranks, {backend.describe}: "
+          f"{D.n_params(P15_FULL_ARCH, 'full') / 1e9:.3f} B params; world {world_s:.1f} s "
+          f"(spawn, init, {P15_FULL_STEPS} steps{', then (c)' if also else ''}); {card}")
+    print(f"[chip_smoke]   losses {losses} against the single-process step's {want} "
+          f"({single_s:.1f} s): max relative {max(errs):.3g} (tol {P15_FULL_TOL}, headroom "
+          f"{P15_FULL_TOL / max(max(errs), 1e-12):.1f}x); step s (slowest rank) "
+          f"{[round(v, 3) for v in step_s]}; {card}")
+    for r in res:
+        req, rise = r["requested_rise"], r["allocated_rise"]
+        print(f"[chip_smoke]   rank {r['coords']} on {r['device']}: resident "
+              f"{r['param_bytes'] + r['opt_bytes']} B (tree_shard_bytes {resident}), requested "
+              f"from the allocator {req} B ({abs(req - resident) / resident:.3%}), its blocks "
+              f"{rise} B (+{(rise - resident) / resident:.3%}: each request rounded up to its "
+              f"block), peak {r['peak'] / 2**30:.2f} GiB; placed in {r['setup_s']:.1f} s; last "
+              f"step's staged seconds {_rounded(r['staged_s'])}; {card}")
+    print(f"[chip_smoke]   collective bytes a rank, one step: counted {counted} against "
+          f"collectives_from_specs {model}; staged through the host "
+          f"{res[0]['staged_bytes']}; {card}")
+    row = dict(mesh=mesh, backend=backend.describe, losses=losses, single=want, rel_err=errs,
+               step_s=step_s, world_s=world_s, resident=resident, counted=counted,
+               counts={"|".join(k): v for k, v in res[0]["counts"].items()}, model=model,
+               staged=res[0]["staged_bytes"],
+               ranks=[{k: r[k] for k in ("coords", "device", "param_bytes", "opt_bytes",
+                                        "requested_rise", "allocated_rise", "peak", "step_s",
+                                        "setup_s", "staged_s")} for r in res],
+               also=ranks[0][1:])
+    if not max(errs) <= P15_FULL_TOL:
+        raise AssertionError(f"phase 15 {mesh}: losses {losses} against {want}")
+    for r in res:
+        if r["param_bytes"] + r["opt_bytes"] != resident:
+            raise AssertionError(f"phase 15 {mesh}: rank {r['coords']} holds "
+                                 f"{r['param_bytes'] + r['opt_bytes']} B, not {resident}")
+        if not abs(r["requested_rise"] - resident) <= P15_ARG_TOL * resident:
+            raise AssertionError(f"phase 15 {mesh}: rank {r['coords']} asked the allocator for "
+                                 f"{r['requested_rise']} B for {resident}")
+    if restart is not None:
+        new_mesh, new_backend, batch = restart
+        job = D.MeshJob(P15_FULL_ARCH, new_mesh, (P15_FULL_STEPS, P15_FULL_STEPS + 2), batch,
+                        seq_len=P15_SEQ, variant="full", restore=save)
+        ranks = D.run_ranks(_p15_rank, ([job],), new_backend, str(ROOT / P15_RENDEZVOUS),
+                            P15_WAIT_S)
+        _p15_launches(f"{new_mesh}", ranks)
+        row["restart"] = dict(mesh=new_mesh, backend=new_backend.describe,
+                              losses=ranks[0][0]["losses"])
+        print(f"[chip_smoke]   elastic restart onto {new_mesh}, {new_backend.describe}: "
+              f"losses {ranks[0][0]['losses']}; {card}")
+        if not _all_finite(ranks[0][0]["losses"]):
+            raise AssertionError(f"phase 15: the restart's losses {ranks[0][0]['losses']}")
+    _phase13(f"distributed gemma3-1b FULL {mesh}", t0)
+    return row
+
+
+def _moe_check(torch, card, results) -> dict:
+    """Phase 15 (c): the MoE archs' losses at (4, 2) on the card (rank 0's
+    results, in P15_MOE's order) against the single-process step on the
+    CPU."""
+    detail = {}
+    for arch, res in zip(P15_MOE, results):
+        got = res["losses"]
+        want = _p15_single(torch, arch, "smoke", "cpu", P15_MOE_STEPS, remat=False)
+        err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        detail[arch] = dict(card=got, cpu=want, rel_err=err)
+        print(f"[chip_smoke]   {arch} SMOKE (4, 2) on the card {got} against the CPU's "
+              f"single-process step {want}: max relative {err:.3g} (tol {P15_MOE_TOL}); {card}")
+        if not err <= P15_MOE_TOL:
+            raise AssertionError(f"phase 15 (c): {arch} card {got}, CPU {want}")
+    return detail
+
+
+def _nccl_phase(torch, card, t0) -> dict:
+    """Phase 15 (d), on 4 cards or more: (b) at P15_NCCL_MESH on nccl, a card
+    a rank, checkpointed, then restarted onto the elastic plan's mesh."""
+    import shutil
+
+    from repro_torch.launch import distributed as D
+    from repro_torch.runtime.fault_tolerance import ElasticPlan
+
+    plan = ElasticPlan.plan(*P15_NCCL_MESH, failed=1, global_batch=P15_BATCH)
+    new = (plan.new_data, plan.new_model)
+    ckpt = ROOT / "build" / "p15_nccl_ckpt"
+    try:
+        return _mesh_full(
+            torch, card, P15_NCCL_MESH, D.choose_backend("cuda", math.prod(P15_NCCL_MESH)), t0,
+            save=str(ckpt),
+            restart=(new, D.choose_backend("cuda", math.prod(new)), plan.new_global_batch))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _distributed_phase(torch, K, card, t0) -> dict:
+    """Phase 15 -> its detail.  Raises on the first failed check."""
+    from repro_torch.launch import distributed as D
+
+    K.reset_launch_counts()
+    detail = {"example": _example_phase(card, time.perf_counter())}
+    backend = D.choose_backend("cuda", math.prod(P15_FULL_MESH))
+    print(f"[chip_smoke]   backend for {P15_FULL_MESH}: {backend.describe}; {card}")
+    moe = [D.MeshJob(a, P15_FULL_MESH, (0, P15_MOE_STEPS), P15_BATCH, seq_len=P15_SEQ)
+           for a in P15_MOE]
+    detail["full"] = _mesh_full(torch, card, P15_FULL_MESH, backend, time.perf_counter(),
+                                also=moe)
+    detail["moe"] = _moe_check(torch, card, detail["full"].pop("also"))
+    if torch.cuda.device_count() >= P15_NCCL_MESH[0] * P15_NCCL_MESH[1]:
+        detail["nccl"] = _nccl_phase(torch, card, time.perf_counter())
+    launches = K.launch_counts()
+    print(f"[chip_smoke]   registry kernel launches over phase 15's in-process work: {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 15: a registry kernel ran on the LM path: {launches}")
+    _phase13("distributed train", t0)
+    return detail
+
+
 def main() -> int:
     try:
         import torch
@@ -3198,6 +3493,9 @@ def main() -> int:
 
     # 14. mesh costing: the dry run, and its model held against the card -------------------------
     detail["dryrun"] = _dryrun_phase(torch, K, card, time.perf_counter())
+
+    # 15. distributed train: the mesh step over torch.distributed ranks --------------------------
+    detail["distributed"] = _distributed_phase(torch, K, card, time.perf_counter())
 
     kernels = [
         _kernel_entry(name, src, rep, launches[name], totals[name])

@@ -10,10 +10,25 @@ Each model module exposes ``*_pspecs`` functions that mirror its parameter,
 cache or state tree with :class:`P` leaves; a layer-stacked leaf (leading
 layer axis) gets a ``None`` prepended (:func:`stacked`).
 
-The port runs no SPMD program: a :class:`Mesh` is a description with no
-devices, the counterpart of ``jax.sharding.AbstractMesh``, and the specs
-are read by the dry run (``launch/dryrun.py``), which costs each device's
-share of a step.  :func:`shard_shape` is ``NamedSharding.shard_shape``.
+A :class:`Mesh` is a description with no devices, the counterpart of
+``jax.sharding.AbstractMesh``; the dry run (``launch/dryrun.py``) reads the
+specs over one to cost each device's share of a step.  :func:`shard_shape`
+is ``NamedSharding.shard_shape``.
+
+The port runs no SPMD program.  Where the JAX package jits one step over a
+mesh of devices and lets GSPMD partition it, the port runs one
+``torch.distributed`` rank a mesh position: a :class:`RankMesh` is this
+rank's place on the mesh (row-major coordinates, as
+``np.array(devices).reshape(sizes)`` orders devices) with one process
+group per axis line through it.  :func:`shard_tree` is ``device_put``
+(slice a full tree into one rank's shards), :func:`gather_tree` is
+``device_get`` (rebuild the full tree on every rank), and
+:func:`set_rank_mesh` / :func:`get_rank_mesh` / :func:`using_rank_mesh`
+are the counterparts of ``set_activation_mesh`` / ``get_activation_mesh``:
+the LM layers and the train step read the rank mesh where the reference
+reads the activation mesh, and then take the rank's shards and its batch
+rows.  The collectives GSPMD would insert are written down in
+``common/collectives.py``.
 
 The serving engine's lane shards run on real devices: the JAX package
 shards its lane axis over a 1-D ``("data",)`` mesh of the first N devices
@@ -21,21 +36,22 @@ and runs one GSPMD program; the port holds one lane shard per device of a
 plain device list (:func:`lane_devices`) and issues each shard's work on
 its own device.
 
-No counterpart: ``set_activation_mesh``, ``get_activation_mesh``,
-``set_scan_unroll``, ``scan_unroll``, ``set_attn_kv_gather``,
-``constrain_qkv`` and ``constrain_act``.  They are hints to GSPMD's
-partitioner, and the port runs no SPMD program; its layer stacks are
-Python loops, so there is nothing to unroll.
+No counterpart: ``set_scan_unroll``, ``scan_unroll``,
+``set_attn_kv_gather``, ``constrain_qkv`` and ``constrain_act``.  They are
+hints to GSPMD's partitioner; the port's layer stacks are Python loops, so
+there is nothing to unroll, and it places activations itself.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import math
 from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.common.tree import tree_leaves, tree_map
+from repro_torch.common.tree import tree_leaves, tree_leaves_with_path, tree_map
 from repro_torch.common.types import Mesh
 
 
@@ -163,6 +179,151 @@ def meta_like(tree: Any) -> Any:
     """A tree of ``meta`` tensors with ``tree``'s shapes and dtypes: the
     counterpart of ``abstract_like``'s ``ShapeDtypeStruct`` tree."""
     return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), tree)
+
+
+def spec_leaves(specs: Any) -> list[P]:
+    """The spec leaves of a spec tree in JAX's flatten order (a :class:`P`
+    is a tuple, which the plain tree helpers would walk into)."""
+    return [s for _, s in tree_leaves_with_path(specs, is_leaf=is_spec)]
+
+
+# ---------------------------------------------------------------------------
+# Ranks on a mesh: the placement GSPMD does, done by hand
+# ---------------------------------------------------------------------------
+
+
+def mesh_coords(mesh: Mesh, rank: int) -> dict[str, int]:
+    """Rank ``rank``'s index on each axis: row-major over the axis sizes, as
+    ``np.array(devices).reshape(sizes)`` places device ``rank``."""
+    out = {}
+    for name, size in reversed(tuple(zip(mesh.axis_names, mesh.axis_sizes))):
+        rank, out[name] = divmod(rank, size)
+    return {name: out[name] for name in mesh.axis_names}
+
+
+@dataclasses.dataclass(eq=False)
+class RankMesh:
+    """This process's place on a mesh of ``torch.distributed`` ranks.
+
+    ``coords`` are the rank's :func:`mesh_coords`; ``groups[axis]`` is the
+    process group of the ranks that differ from this one along ``axis``
+    alone (``None`` for an axis of size 1); ``device`` holds the rank's
+    tensors.  ``staged`` says the collectives run on host copies (gloo ranks
+    that share a card, ``common/collectives.py``).  ``counts`` holds the
+    output bytes of each collective the rank ran, keyed ``(kind, tag,
+    phase)`` in the dry run's kinds; ``staged_bytes`` the bytes each kind
+    copied between the card and the host; ``phase`` is set by the train
+    step (``forward``, ``backward``, ``update``)."""
+
+    mesh: Mesh
+    rank: int
+    coords: dict[str, int]
+    groups: dict[str, Any]
+    device: torch.device
+    staged: bool = False
+    counts: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    staged_bytes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    seconds: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    phase: str = "forward"
+
+    @classmethod
+    def build(cls, axis_sizes, axis_names=("data", "model"), device="cpu") -> "RankMesh":
+        """The mesh over the initialised default process group, whose world
+        size must be the mesh's.  Collective: every rank calls it, since each
+        rank takes part in creating every axis line's group."""
+        import torch.distributed as dist
+
+        mesh = Mesh(tuple(axis_sizes), tuple(axis_names))
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if world != mesh.size:
+            raise ValueError(f"a {mesh.shape} mesh needs {mesh.size} ranks, the world has {world}")
+        groups: dict[str, Any] = {}
+        for axis in mesh.axis_names:
+            lines: dict[tuple, list[int]] = {}
+            for r in range(world):
+                at = mesh_coords(mesh, r)
+                lines.setdefault(tuple(v for a, v in at.items() if a != axis), []).append(r)
+            for ranks in lines.values():  # in one order on every rank
+                group = dist.new_group(ranks) if len(ranks) > 1 else None
+                if rank in ranks:
+                    groups[axis] = group
+        device = torch.device(device)
+        return cls(mesh, rank, mesh_coords(mesh, rank), groups, device,
+                   staged=dist.get_backend() == "gloo" and device.type == "cuda")
+
+    def size(self, axis: str) -> int:
+        return self.mesh.shape[axis]
+
+    def owns(self, spec: P) -> bool:
+        """Whether this rank is the one that counts a leaf laid out by
+        ``spec`` once: index 0 on every axis the spec does not split."""
+        named = {a for e in spec for a in entry_axes(e)}
+        return all(i == 0 for a, i in self.coords.items() if a not in named)
+
+    def reset_counts(self) -> None:
+        self.counts.clear()
+        self.staged_bytes.clear()
+        self.seconds.clear()
+
+
+def _slices(mesh: Mesh, spec: P, shape, coords: dict[str, int]) -> tuple[slice, ...]:
+    local = shard_shape(mesh, spec, shape)
+    out = []
+    for i, entry in enumerate(spec):
+        k = 0
+        for a in entry_axes(entry):  # the first axis is the major one, as in JAX
+            k = k * mesh.shape[a] + coords[a]
+        out.append(slice(k * local[i], (k + 1) * local[i]))
+    return tuple(out)
+
+
+def shard_tree(tree: Any, specs: Any, mesh: Mesh, coords: dict[str, int]) -> Any:
+    """The shards of the full ``tree`` that the rank at ``coords`` holds under
+    ``specs`` (``device_put`` onto a mesh): each leaf sliced to
+    :func:`shard_shape`, a copy of its own, so the full tree can be freed."""
+    return tree_map(lambda s, x: x[_slices(mesh, s, x.shape, coords)].clone(), specs, tree,
+                    is_leaf=is_spec)
+
+
+def gather_tree(tree: Any, specs: Any, rank_mesh: "RankMesh") -> Any:
+    """The full tree on every rank from each rank's shards under ``specs``
+    (``device_get``): collective, every rank calls it.  Counted in phase
+    ``gather``."""
+    from repro_torch.common import collectives as C
+
+    phase, rank_mesh.phase = rank_mesh.phase, "gather"
+    try:
+        with torch.no_grad():
+            return tree_map(lambda s, x: C.gather_leaf(x, s, rank_mesh), specs, tree,
+                            is_leaf=is_spec)
+    finally:
+        rank_mesh.phase = phase
+
+
+_RANK_MESH: list[RankMesh | None] = [None]
+
+
+def set_rank_mesh(mesh: RankMesh | None) -> None:
+    """Register this process's rank mesh (``set_activation_mesh``'s
+    counterpart): while one is set, the LM forward takes the rank's shards
+    and batch rows."""
+    _RANK_MESH[0] = mesh
+
+
+def get_rank_mesh() -> RankMesh | None:
+    return _RANK_MESH[0]
+
+
+@contextlib.contextmanager
+def using_rank_mesh(mesh: RankMesh | None):
+    """:func:`set_rank_mesh` for the body of a ``with``, the previous mesh
+    restored after."""
+    prev = _RANK_MESH[0]
+    _RANK_MESH[0] = mesh
+    try:
+        yield mesh
+    finally:
+        _RANK_MESH[0] = prev
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,12 @@
 over the LM families, plus the train / prefill / decode step builders the
 trainer, the server and the dry run share.  The port's copy of
 ``repro/launch/steps.py``: the transformer family (dense, moe, audio,
-vlm), xlstm (``ssm``) and hymba (``hybrid``).  The steps run off-mesh;
-``pspecs``, ``cache_pspecs`` and :func:`opt_pspecs` give the reference's
-mesh layout, which ``launch/dryrun.py`` costs.
+vlm), xlstm (``ssm``) and hymba (``hybrid``).  ``pspecs``,
+``cache_pspecs`` and :func:`opt_pspecs` give the reference's mesh layout,
+which ``launch/dryrun.py`` costs.  The prefill and decode steps run
+off-mesh; the train step also runs on a mesh of ``torch.distributed``
+ranks (``make_train_step(..., mesh=RankMesh)``), one rank a mesh
+position, as the reference's step runs jitted over a device mesh.
 
 A train step differentiates with autograd and updates with the port's
 AdamW (:func:`repro_torch.optim.adamw_update`); the loss is the mean token
@@ -18,7 +21,8 @@ from typing import Any, Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common.sharding import P
+from repro_torch.common import collectives as C
+from repro_torch.common.sharding import P, RankMesh, entry_axes, spec_leaves, using_rank_mesh
 from repro_torch.common.tree import tree_leaves, tree_unflatten
 from repro_torch.common.types import LMConfig
 from repro_torch.models import hymba as HY
@@ -160,9 +164,24 @@ def make_train_step(
     *,
     remat: bool = True,
     chunked_ce: int = 0,  # 0 = plain CE; >0 = S-chunk size
+    mesh: RankMesh | None = None,
 ):
     """``step(params, opt, batch) -> (params, opt, loss)``; ``batch`` holds
-    ``inputs`` (token ids or stub embeddings) and ``labels``."""
+    ``inputs`` (token ids or stub embeddings) and ``labels``.
+
+    With a ``("data", "model")`` :class:`RankMesh`, ``params`` and ``opt``
+    are this rank's shards under ``adapter.pspecs`` / :func:`opt_pspecs`
+    (``common/sharding.py::shard_tree``), ``batch`` is its data shard's rows
+    (every model rank of a data row gets the same rows), and the step
+    returns the rank's new shards and the global loss.  The transformer
+    family gathers its edge leaves once and its blocks one at a time
+    (``models/transformer.py``); xlstm and hymba gather the whole tree once.
+    Each data shard's loss is the mean over its rows, and the loss is their
+    mean over "data": the global mean, since every shard has as many
+    labels.  Gradients come back to the shards through the gathers'
+    reduce-scatters; those of leaves replicated over "data" are all-reduced
+    over it; a leaf computed the same on every model rank is summed over
+    "data" only."""
 
     def loss_fn(p, batch):
         inputs, labels = batch["inputs"], batch["labels"]
@@ -184,7 +203,38 @@ def make_train_step(
         params, opt = adamw_update(opt_cfg, params, tree_unflatten(params, list(grads)), opt)
         return params, opt, loss.detach()
 
-    return train_step
+    if mesh is None:
+        return train_step
+    if mesh.mesh.axis_names != ("data", "model"):
+        raise ValueError(f"the rank-mesh step takes a (data, model) mesh, not {mesh.mesh}")
+    cfg = adapter.cfg
+    specs = adapter.pspecs(mesh.size("model"))
+    dp = mesh.size("data")
+    # leaves replicated over "data": their gradient is each shard's, summed
+    over_data = ["data" not in {a for e in s for a in entry_axes(e)} for s in spec_leaves(specs)]
+
+    def gathered(p):
+        if cfg.family in RECURRENT_FAMILIES:
+            return C.gather_params(p, specs, mesh)
+        return T.lm_gather_edges(cfg, p, mesh)
+
+    def mesh_step(params: Params, opt: AdamWState, batch: dict):
+        live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        with using_rank_mesh(mesh), torch.enable_grad():
+            mesh.phase = "forward"
+            local = loss_fn(gathered(tree_unflatten(params, live)), batch)
+            mesh.phase = "backward"
+            grads = torch.autograd.grad(local / dp, live, materialize_grads=True)
+        mesh.phase = "update"
+        grads = [C.all_reduce(g, mesh, "data", tag="grad") if rep else g
+                 for g, rep in zip(grads, over_data)]
+        loss = C.all_reduce(local.detach(), mesh, "data", tag="loss") / dp
+        params, opt = adamw_update(opt_cfg, params, tree_unflatten(params, grads), opt,
+                                   mesh=mesh, specs=specs)
+        mesh.phase = "forward"
+        return params, opt, loss
+
+    return mesh_step
 
 
 def make_prefill_step(adapter: ArchAdapter):

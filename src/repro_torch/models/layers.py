@@ -1,6 +1,6 @@
 """Norms, MLPs and MoE layers of the LM transformer family.
 
-The port's copy of ``repro/models/layers.py``, off-mesh.  Parameters live
+The port's copy of ``repro/models/layers.py``.  Parameters live
 in plain nested dicts; ``init_*`` builds them from an explicit
 ``torch.Generator``, ``apply_*`` consumes them.  Dtype policy: weights are
 created in ``cfg.dtype`` (bf16 for a full-size LM); norm scales and the
@@ -11,6 +11,14 @@ A Python float times a bf16 tensor is a bf16 product with the scalar
 rounded to bf16 in JAX, while torch multiplies by the unrounded scalar in
 float32 and rounds once; :func:`scalar` rounds such constants to the
 tensor's dtype first, so both packages compute the same product.
+
+On a rank mesh (``common/sharding.py::get_rank_mesh``) the MLP and the MoE
+experts are tensor-parallel over "model", as the reference's mesh layout
+and its MoE ``shard_map`` make them: :func:`gather_mlp` / :func:`gather_moe`
+gather a block's shards over "data" to that layout, :func:`apply_mlp` and
+:func:`apply_moe` see a rank's f-slice of the weights and sum the partial
+products over "model" (``common/collectives.py``).  Given whole weights
+(the recurrent families gather every leaf) they compute as off-mesh.
 """
 from __future__ import annotations
 
@@ -19,6 +27,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.common import collectives as C
+from repro_torch.common.sharding import get_rank_mesh
 from repro_torch.common.types import LMConfig, MoESpec
 
 Params = dict[str, Any]
@@ -113,14 +123,26 @@ def init_mlp(gen: torch.Generator, cfg: LMConfig, device) -> Params:
     return p
 
 
+def gather_mlp(p: Params, specs: Params, mesh) -> Params:
+    """The MLP's shards in its compute layout on the rank mesh: gathered over
+    "data", the f dimension left split over "model" (``w_in`` / ``w_gate``
+    column-parallel, ``w_out`` row-parallel)."""
+    return {k: C.gather_leaf(x, specs[k], mesh, keep=("model",)) for k, x in p.items()}
+
+
 def apply_mlp(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    mesh = get_rank_mesh()
+    tp = mesh is not None and p["w_in"].shape[-1] != cfg.d_ff  # this rank's f-slice
+    if tp:
+        x = C.copy_to(x, mesh, "model", tag="mlp")
     act = act_fn(cfg.act)
     h = x @ p["w_in"]
     if cfg.glu:
         h = act(x @ p["w_gate"]) * h
     else:
         h = act(h)
-    return h @ p["w_out"]
+    y = h @ p["w_out"]
+    return C.reduce_from(y, mesh, "model", tag="mlp") if tp else y
 
 
 # ---------------------------------------------------------------------------
@@ -158,9 +180,11 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _moe_one_group(
-    cfg: LMConfig, p: Params, xt: torch.Tensor, cap: int
+    cfg: LMConfig, p: Params, xt: torch.Tensor, cap: int, mesh=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch / compute / combine for one token group. xt: [T, d]."""
+    """Dispatch / compute / combine for one token group. xt: [T, d].  With
+    ``mesh``, the experts are this rank's f-slices: the expert buffer's
+    input gradient and its output are summed over "model"."""
     spec = cfg.moe
     assert spec is not None
     t, d = xt.shape
@@ -190,12 +214,16 @@ def _moe_one_group(
     buf = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=xt.device)
     buf = buf.index_put((dest,), xt[src])
     buf = buf[: e * cap].reshape(e, cap, d)
+    if mesh is not None:
+        buf = C.copy_to(buf, mesh, "model", tag="moe")
 
     # expert computation (gated MLP per expert)
     act = act_fn(cfg.act)
     h = torch.bmm(buf, p["w_in"])
     g = torch.bmm(buf, p["w_gate"])
     out_buf = torch.bmm(act(g) * h, p["w_out"])  # [E, C, d]
+    if mesh is not None:
+        out_buf = C.reduce_from(out_buf, mesh, "model", tag="moe")
 
     # gather back and combine with the gate probabilities
     flat_out = out_buf.reshape(e * cap, d)
@@ -206,14 +234,48 @@ def _moe_one_group(
     return out, aux
 
 
+def gather_moe(cfg: LMConfig, p: Params, specs: Params, mesh) -> Params:
+    """The MoE layer's shards in its compute layout on the rank mesh, the
+    reference's ``shard_map`` in-specs: the router whole, each expert
+    weight gathered over "data" with its f dimension split over "model"
+    (tensor-parallel storage keeps it so; expert-parallel storage, the
+    experts over "model", is gathered whole and each rank keeps its
+    f-slice).  Where d_expert does not split over "model" the reference
+    takes its off-``shard_map`` branch, and every weight is gathered whole.
+    (Its other condition, a global batch that divides over the data
+    shards, is the rank-mesh train step's own.)"""
+    if cfg.moe.d_expert % mesh.size("model"):
+        return C.gather_params(p, specs, mesh)
+    out = {"router": C.gather_leaf(p["router"], specs["router"], mesh)}
+    m, i = mesh.size("model"), mesh.coords["model"]
+    for k in ("w_in", "w_gate", "w_out"):
+        f_dim = 1 if k == "w_out" else 2
+        if specs[k][f_dim] == "model":
+            out[k] = C.gather_leaf(p[k], specs[k], mesh, keep=("model",))
+        else:
+            whole = C.gather_leaf(p[k], specs[k], mesh, summed=("model",))
+            n = whole.shape[f_dim] // m
+            out[k] = whole.narrow(f_dim, i * n, n)
+    return out
+
+
 def apply_moe(cfg: LMConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_loss). x: [B, S, d_model].
 
     Tokens are dispatched in groups, one per batch row, each with its own
-    capacity ``min(moe_capacity, S)``; aux is the mean over the groups."""
+    capacity ``min(moe_capacity, S)``; aux is the mean over the groups.
+    On a rank mesh ``x`` is the data shard's rows, each dispatched as
+    off-mesh; given f-sliced experts (:func:`gather_moe`) the expert
+    products are summed over "model", and aux is the mean over the data
+    shards of each shard's mean, as the reference's mesh branch."""
     spec = cfg.moe
     assert spec is not None
     b, s, d = x.shape
     cap = min(moe_capacity(spec, s), s)
-    outs, auxs = zip(*(_moe_one_group(cfg, p, x[i], cap) for i in range(b)))
-    return torch.stack(outs), torch.mean(torch.stack(auxs))
+    mesh = get_rank_mesh()
+    tp = mesh if mesh is not None and p["w_in"].shape[-1] != spec.d_expert else None
+    outs, auxs = zip(*(_moe_one_group(cfg, p, x[i], cap, tp) for i in range(b)))
+    aux = torch.mean(torch.stack(auxs))
+    if mesh is not None:
+        aux = C.mean_over(aux, mesh, "data", tag="aux")
+    return torch.stack(outs), aux

@@ -1,8 +1,8 @@
 """Decoder-only LM transformer for the dense, moe, audio and vlm families.
 
-The port's copy of ``repro/models/transformer.py``.  It runs off-mesh;
-``lm_pspecs`` / ``cache_pspecs`` give the reference's mesh layout, which
-the dry run (``launch/dryrun.py``) costs.  The layer
+The port's copy of ``repro/models/transformer.py``.  ``lm_pspecs`` /
+``cache_pspecs`` give the reference's mesh layout, which the dry run
+(``launch/dryrun.py``) costs and the rank-mesh train step places.  The layer
 stack keeps the reference's pattern-unit layout: the config's repeating
 layer pattern (gemma3's 5 local + 1 global) forms a unit, the full units'
 parameters are stacked on a leading axis (``blocks.slotJ``), and the
@@ -14,6 +14,19 @@ for leaf, so bridged weights and checkpoints map one to one.
 
 A bf16 model computes in bf16: the embedding table is bf16 and
 frontend-stub inputs are cast to ``cfg.dtype``.
+
+On a rank mesh (``common/sharding.py::get_rank_mesh``, set by the train
+step) :func:`lm_forward_hidden` takes the rank's shards of ``blocks`` and
+``tail`` and its batch rows, and gathers one block's leaves as it reaches
+the block, inside the checkpointed unit under ``remat`` (so the backward
+gathers again), as XLA gathers one layer's weights inside the scan body.
+The MLP and the MoE experts stay split over "model"
+(``layers.gather_mlp`` / ``gather_moe``); attention, the norms and the
+router are gathered whole and computed the same on each model rank of a
+data row (gemma3-1b's single KV head leaves "model" only ``head_dim`` to
+split, which rope pairs across).  The other leaves (``embed``,
+``lm_head``, ``final_norm``) are gathered whole once a step, by
+:func:`lm_gather_edges`, before the forward and the head read them.
 """
 from __future__ import annotations
 
@@ -22,7 +35,8 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common.sharding import P, is_spec
+from repro_torch.common import collectives as C
+from repro_torch.common.sharding import P, get_rank_mesh, is_spec
 from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.common.types import AttnSpec, LMConfig
 from repro_torch.models import attention as attn_lib
@@ -214,11 +228,16 @@ def lm_forward_hidden(
     """Backbone only: final-normed hidden states [B, S, D] + moe aux."""
     n_units, n_tail = _pattern_split(cfg)
     h = _embed_in(cfg, params, inputs)
+    mesh = get_rank_mesh()
+    bspecs = None if mesh is None else _block_pspecs(cfg, mesh.size("model"))
 
     def unit_fn(h, unit_p):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for j, spec in enumerate(cfg.pattern):
-            h, a = block_apply(cfg, unit_p[f"slot{j}"], spec, h)
+            p = unit_p[f"slot{j}"]
+            if mesh is not None:
+                p = _gather_block(cfg, p, bspecs, mesh)
+            h, a = block_apply(cfg, p, spec, h)
             aux = aux + a
         return h, aux
 
@@ -234,9 +253,40 @@ def lm_forward_hidden(
     if n_units:
         aux_total = aux_total + torch.sum(torch.stack(auxs))
     for j in range(n_tail):
-        h, a = block_apply(cfg, params["tail"][j], cfg.pattern[j], h)
+        if mesh is None:
+            h, a = block_apply(cfg, params["tail"][j], cfg.pattern[j], h)
+        else:  # the gather inside the checkpoint, as for a unit
+            def tail_fn(h, p, spec=cfg.pattern[j]):
+                return block_apply(cfg, _gather_block(cfg, p, bspecs, mesh), spec, h)
+
+            if recompute:
+                h, a = checkpoint(tail_fn, h, params["tail"][j], use_reentrant=False)
+            else:
+                h, a = tail_fn(h, params["tail"][j])
         aux_total = aux_total + a
     return L.apply_norm(cfg, params["final_norm"], h), aux_total
+
+
+def _gather_block(cfg: LMConfig, p: Params, specs: Params, mesh) -> Params:
+    """One block's shards gathered to its compute layout on the rank mesh."""
+    out = {}
+    for k, v in p.items():
+        if k == "mlp":
+            out[k] = L.gather_mlp(v, specs[k], mesh)
+        elif k == "moe":
+            out[k] = L.gather_moe(cfg, v, specs[k], mesh)
+        else:
+            out[k] = C.gather_params(v, specs[k], mesh)
+    return out
+
+
+def lm_gather_edges(cfg: LMConfig, params: Params, mesh) -> Params:
+    """The rank's shards with every leaf outside ``blocks`` and ``tail``
+    (embedding, head, final norm) gathered whole, once a step: the tree
+    :func:`lm_forward_hidden` and :func:`lm_head_logits` take on a rank mesh."""
+    specs = lm_pspecs(cfg, mesh.size("model"))
+    return {k: v if k in ("blocks", "tail") else C.gather_params(v, specs[k], mesh)
+            for k, v in params.items()}
 
 
 def lm_head_logits(cfg: LMConfig, params: Params, h: torch.Tensor) -> torch.Tensor:

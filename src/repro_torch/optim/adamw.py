@@ -9,6 +9,12 @@ Adam direction before scaling by the learning rate.  Moments are float32;
 the update is computed in float32 and cast back to each leaf's dtype.  The
 schedule and the bias corrections are float32 tensors, as the JAX
 package's int32 step makes them, never Python doubles.
+
+On a rank mesh (``mesh`` and the parameters' ``specs`` given) the trees are
+the rank's shards: the clip's global norm sums each leaf's squares on the
+one rank that owns it (``RankMesh.owns``: index 0 on every axis the leaf is
+replicated over) and all-reduces the sum over every rank; the rest of the
+update is elementwise on the shard.
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.common import collectives as C
+from repro_torch.common.sharding import spec_leaves
 from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -72,16 +80,25 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return _f32(cfg.lr, step) * warm * frac
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(sum(leaves))
+def global_norm(tree: Any, mesh=None, specs: Any = None) -> torch.Tensor:
+    """The norm of every leaf; on a rank mesh, of the full tree whose shards
+    ``tree`` holds under ``specs``."""
+    if mesh is None:
+        leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+        return torch.sqrt(sum(leaves))
+    local = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    for x, spec in zip(tree_leaves(tree), spec_leaves(specs)):
+        if mesh.owns(spec):
+            local = local + torch.sum(torch.square(x.float()))
+    return torch.sqrt(C.all_reduce(local, mesh, None, tag="norm"))
 
 
 @torch.no_grad()
 def adamw_update(
-    cfg: AdamWConfig, params: Any, grads: Any, state: AdamWState
+    cfg: AdamWConfig, params: Any, grads: Any, state: AdamWState, *, mesh=None,
+    specs: Any = None,
 ) -> tuple[Any, AdamWState]:
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     clip = torch.minimum(_f32(1.0, gnorm), _f32(cfg.grad_clip, gnorm) / (gnorm + 1e-9))
     step = state.step + 1
     lr = lr_schedule(cfg, step)
