@@ -1,0 +1,350 @@
+"""Plain PyTorch reference of the served Stable Diffusion path.
+
+The benchmark's own statement of what one txt2img request computes:
+
+* the latent-diffusion U-Net of CompVis/stable-diffusion-v1-4 and
+  stabilityai/stable-diffusion-2-1-base (ResBlocks, transformer blocks with
+  self- and cross-attention and a GEGLU feed-forward, 2x nearest upsample,
+  stride-2 downsample), on activations in the (L = H * W, C) layout;
+* phase-aware sampling's partial passes: a SKETCH or REFINE step enters the
+  up path at a given up-step with the main-branch feature captured by the
+  request's last FULL step, and runs only the down blocks whose skips that
+  part of the up path consumes;
+* classifier-free guidance over [cond; uncond] with a zero unconditional
+  embedding, the PNDM (PLMS) update on the scaled-linear schedule, and the
+  small convolutional VAE decoder the served model uses.
+
+Convolutions are ``F.conv2d``, norms ``F.group_norm`` / ``F.layer_norm``,
+attention is softmax over plain matrix products.  Everything is float32.
+:func:`precision` sets the precision of the products: ``"fp32"`` turns
+TF32 off (the reference), ``"tf32"`` turns it on (the control); on a CPU,
+which has no TF32, ``"tf32"`` rounds each product's operands to TF32.
+
+The weights use the served tree layout (nested dicts and lists; a K x K
+conv weight is [K * K, Cin, Cout], tap ``ky * K + kx``), which the
+benchmark builds itself in :mod:`bench.reference.weights`.  This module
+imports nothing but torch.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+FULL, SKETCH, REFINE = 0, 1, 2
+
+_MODE = {"emulate_tf32": False}
+
+
+@contextlib.contextmanager
+def precision(mode: str, device: torch.device):
+    """Products in float32 (``"fp32"``, TF32 off) or in TF32 (``"tf32"``)."""
+    if mode not in ("fp32", "tf32"):
+        raise ValueError(f"precision must be fp32 or tf32, got {mode!r}")
+    tf32 = mode == "tf32"
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             _MODE["emulate_tf32"])
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    _MODE["emulate_tf32"] = tf32 and torch.device(device).type != "cuda"
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         _MODE["emulate_tf32"]) = saved
+
+
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits, to nearest) where the CPU
+    stands in for TF32 hardware; the identity otherwise."""
+    if not _MODE["emulate_tf32"] or t.device.type == "meta":
+        return t
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return tf32(a) @ tf32(b)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+def conv(p: Params, x: torch.Tensor, hw: tuple[int, int], ksize: int, stride: int = 1):
+    """K x K zero-padded convolution of x [B, H*W, Cin] -> [B, H'*W', Cout]."""
+    bsz, _, cin = x.shape
+    h, w = hw
+    x4 = x.transpose(1, 2).reshape(bsz, cin, h, w)
+    wt = p["w"].reshape(ksize, ksize, cin, -1).permute(3, 2, 0, 1)
+    y = F.conv2d(tf32(x4), tf32(wt), p["b"], stride=stride, padding=(ksize - 1) // 2)
+    return y.flatten(2).transpose(1, 2)
+
+
+def group_norm(x: torch.Tensor, p: Params, groups: int, silu: bool = False, eps: float = 1e-5):
+    bsz, l, c = x.shape
+    y = F.group_norm(x.transpose(1, 2), groups, p["scale"], p["bias"], eps).transpose(1, 2)
+    return F.silu(y) if silu else y
+
+
+def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5):
+    return F.layer_norm(x, (x.shape[-1],), p["scale"], p["bias"], eps)
+
+
+def attention(q, k, v, o_proj, n_heads: int) -> torch.Tensor:
+    """Multi-head softmax attention over projected [B, L, C] tensors, then
+    the output projection."""
+    bsz, lq, c = q.shape
+    dh = c // n_heads
+    heads = lambda t: t.reshape(bsz, t.shape[1], n_heads, dh).transpose(1, 2)  # noqa: E731
+    logits = mm(heads(q) * dh**-0.5, heads(k).transpose(-1, -2))
+    out = mm(torch.softmax(logits, dim=-1), heads(v))
+    return mm(out.transpose(1, 2).reshape(bsz, lq, c), o_proj)
+
+
+def upsample2x(x: torch.Tensor, hw: tuple[int, int]):
+    bsz, _, c = x.shape
+    h, w = hw
+    x4 = F.interpolate(x.transpose(1, 2).reshape(bsz, c, h, w), scale_factor=2, mode="nearest")
+    return x4.flatten(2).transpose(1, 2), (2 * h, 2 * w)
+
+
+def res_block(p: Params, x, temb, hw, groups: int):
+    h = conv(p["conv1"], group_norm(x, p["gn1"], groups, silu=True), hw, 3)
+    h = h + (mm(F.silu(temb), p["t_proj"]["w"]) + p["t_proj"]["b"])[:, None, :]
+    h = conv(p["conv2"], group_norm(h, p["gn2"], groups, silu=True), hw, 3)
+    if "skip" in p:
+        x = conv(p["skip"], x, hw, 1)
+    return x + h
+
+
+def transformer_block(p: Params, x, ctx, hw, n_heads: int, groups: int):
+    h = conv(p["proj_in"], group_norm(x, p["gn"], groups), hw, 1)
+    z = layer_norm(h, p["ln1"])
+    h = h + attention(mm(z, p["self_q"]), mm(z, p["self_k"]), mm(z, p["self_v"]),
+                      p["self_o"], n_heads)
+    z = layer_norm(h, p["ln2"])
+    h = h + attention(mm(z, p["cross_q"]), mm(ctx, p["cross_k"]), mm(ctx, p["cross_v"]),
+                      p["cross_o"], n_heads)
+    z = layer_norm(h, p["ln3"])
+    gate, val = mm(z, p["ff_in"]).chunk(2, dim=-1)
+    h = h + mm(gate * torch.sigmoid(1.702 * gate) * val, p["ff_out"])
+    return conv(p["proj_out"], h, hw, 1) + x
+
+
+def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    ang = t.float()[:, None] * freqs[None]
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the U-Net
+# ---------------------------------------------------------------------------
+
+
+def n_up_steps(cfg: dict) -> int:
+    return len(cfg["channel_mult"]) * (cfg["n_res_blocks"] + 1)
+
+
+def down_blocks(cfg: dict) -> list[tuple[int, bool, bool]]:
+    """(level, has attention, is the stride-2 downsample) per down entry."""
+    out = []
+    n_levels = len(cfg["channel_mult"])
+    for lvl in range(n_levels):
+        out += [(lvl, lvl in cfg["attn_levels"], False)] * cfg["n_res_blocks"]
+        if lvl != n_levels - 1:
+            out.append((lvl, False, True))
+    return out
+
+
+def up_blocks(cfg: dict) -> list[tuple[int, bool, bool]]:
+    """(level, has attention, upsample after) per up-step."""
+    out = []
+    for lvl in reversed(range(len(cfg["channel_mult"]))):
+        for i in range(cfg["n_res_blocks"] + 1):
+            out.append((lvl, lvl in cfg["attn_levels"], i == cfg["n_res_blocks"] and lvl != 0))
+    return out
+
+
+def feature_shape(cfg: dict, entry: int, batch: int) -> tuple[int, int, int]:
+    """Shape of the main-branch feature that enters up-step ``entry``."""
+    ups = up_blocks(cfg)
+    lvl = ups[entry][0]
+    size = cfg["latent_size"] >> lvl
+    chans = [cfg["base_channels"] * m for m in cfg["channel_mult"]]
+    c = chans[-1] if entry == 0 else chans[ups[entry - 1][0]]
+    return (batch, size * size, c)
+
+
+def unet(cfg: dict, p: Params, x, t, ctx, *, entry: int = 0, feat=None, capture=()):
+    """eps for x [B, L, C_in] at timesteps t [B] under ctx [B, ctx_len,
+    ctx_dim]; ``entry > 0`` enters up-step ``entry`` with ``feat``.
+    Returns (eps, {up-step: its main-branch input}) for the steps in
+    ``capture``."""
+    size, groups, heads = cfg["latent_size"], cfg["groups"], cfg["n_heads"]
+    hw = (size, size)
+    tm = p["time_mlp"]
+    temb = timestep_embedding(t, cfg["base_channels"])
+    temb = mm(F.silu(mm(temb, tm["w1"]) + tm["b1"]), tm["w2"]) + tm["b2"]
+
+    ups = up_blocks(cfg)
+    skips_needed = len(ups) - entry
+    h = conv(p["conv_in"], x, hw, 3)
+    skips, sizes = [h], [hw]
+    for blk, (_, attn, is_down) in zip(p["down"], down_blocks(cfg)):
+        if entry > 0 and len(skips) >= skips_needed:
+            break
+        if is_down:
+            h = conv(blk["downsample"], h, hw, 3, stride=2)
+            hw = (hw[0] // 2, hw[1] // 2)
+        else:
+            h = res_block(blk["res"], h, temb, hw, groups)
+            for tp in blk.get("tf", []) if attn else []:
+                h = transformer_block(tp, h, ctx, hw, heads, groups)
+        skips.append(h)
+        sizes.append(hw)
+
+    if entry == 0:
+        m = p["mid"]
+        h = res_block(m["res1"], h, temb, hw, groups)
+        for tp in m["tf"]:
+            h = transformer_block(tp, h, ctx, hw, heads, groups)
+        h = res_block(m["res2"], h, temb, hw, groups)
+    else:
+        h, hw = feat, sizes[skips_needed - 1]
+
+    captured = {}
+    for step in range(entry, len(ups)):
+        if step in capture:
+            captured[step] = h
+        blk = p["up"][step]
+        h = torch.cat([h, skips.pop()], dim=-1)
+        hw = sizes.pop()
+        h = res_block(blk["res"], h, temb, hw, groups)
+        _, attn, up_after = ups[step]
+        for tp in blk.get("tf", []) if attn else []:
+            h = transformer_block(tp, h, ctx, hw, heads, groups)
+        if up_after:
+            h, hw = upsample2x(h, hw)
+            h = conv(blk["upsample"], h, hw, 3)
+    h = group_norm(h, p["gn_out"], groups, silu=True)
+    return conv(p["conv_out"], h, hw, 3), captured
+
+
+def vae_decode(p: Params, z: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    """Latent [B, h*w, 4] -> image [B, 16*h*w, 3] (two 2x upsamples)."""
+    h = conv(p["dec_in"], z, hw, 1)
+    h = F.silu(conv(p["dec"][0], h, hw, 3))
+    h, hw = upsample2x(h, hw)
+    h = F.silu(conv(p["dec"][1], h, hw, 3))
+    h, hw = upsample2x(h, hw)
+    h = F.silu(conv(p["dec"][2], h, hw, 3))
+    return conv(p["dec_out"], group_norm(h, p["dec_gn"], 8), hw, 3)
+
+
+# ---------------------------------------------------------------------------
+# sampling
+# ---------------------------------------------------------------------------
+
+
+def alphas_cumprod(sampler: dict, device) -> torch.Tensor:
+    """The scaled-linear schedule's cumulative alphas, float32."""
+    t = sampler["timesteps_train"]
+    betas = torch.linspace(sampler["beta_start"] ** 0.5, sampler["beta_end"] ** 0.5, t,
+                           dtype=torch.float32, device=device) ** 2
+    return torch.cumprod(1.0 - betas, dim=0)
+
+
+def timesteps(sampler: dict, steps: int) -> list[int]:
+    stride = sampler["timesteps_train"] // steps
+    return [i * stride for i in reversed(range(steps))]
+
+
+def pas_branches(plan: dict | None, steps: int) -> list[int]:
+    """The class of each step of a phase-aware plan (``None``: all FULL).
+
+    Steps before ``t_complete`` are FULL; up to ``t_sketch`` every
+    ``t_sparse``-th step is FULL and the rest SKETCH; the rest REFINE."""
+    if plan is None:
+        return [FULL] * steps
+    out = []
+    for t in range(steps):
+        if t < plan["t_complete"]:
+            out.append(FULL)
+        elif t < plan["t_sketch"]:
+            since = t - plan["t_complete"]
+            out.append(FULL if (since + 1) % plan["t_sparse"] == 0 else SKETCH)
+        else:
+            out.append(REFINE)
+    return out
+
+
+def tier_plan(tier: str, steps: int) -> dict | None:
+    """The PAS plan of a quality tier: ``exact`` is all FULL; ``draft``,
+    ``balanced`` and ``high`` move the sketch transition later and the FULL
+    refreshes closer together, in that order."""
+    if tier == "exact":
+        return None
+    if tier == "draft":
+        t_sketch = max(1, steps // 3)
+        return dict(t_sketch=t_sketch, t_complete=min(t_sketch, max(1, steps // 12)), t_sparse=6)
+    if tier == "balanced":
+        t_sketch = max(1, steps // 2)
+        return dict(t_sketch=t_sketch, t_complete=min(t_sketch, max(2, steps // 10)), t_sparse=4)
+    if tier == "high":
+        t_sketch = max(1, (3 * steps) // 4)
+        return dict(t_sketch=t_sketch, t_complete=min(t_sketch, max(2, steps // 4)), t_sparse=2)
+    raise ValueError(f"unknown tier {tier!r}")
+
+
+def plms_eps(ring: list[torch.Tensor]) -> torch.Tensor:
+    """Adams-Bashforth eps' of the order the ring's length allows (newest
+    first)."""
+    e = ring
+    if len(e) == 1:
+        return e[0]
+    if len(e) == 2:
+        return (3 * e[0] - e[1]) / 2
+    if len(e) == 3:
+        return (23 * e[0] - 16 * e[1] + 5 * e[2]) / 12
+    return (55 * e[0] - 59 * e[1] + 37 * e[2] - 9 * e[3]) / 24
+
+
+def sample(cfg: dict, sampler: dict, p: Params, noise, ctx, tier: str, *, l_sketch: int,
+           l_refine: int) -> torch.Tensor:
+    """Run requests of one tier straight through: noise [B, L, 4] and
+    prompt embeddings ctx [B, ctx_len, ctx_dim] -> final latents [B, L, 4]."""
+    steps = sampler["steps"]
+    ab = alphas_cumprod(sampler, noise.device)
+    ts = timesteps(sampler, steps)
+    branches = pas_branches(tier_plan(tier, steps), steps)
+    n_up = n_up_steps(cfg)
+    e_sk, e_rf = n_up - l_sketch, n_up - l_refine
+    ctx2 = torch.cat([ctx, torch.zeros_like(ctx)], dim=0)
+    g = sampler["guidance_scale"]
+    x, ring, feats = noise, [], {}
+    for i, (t, br) in enumerate(zip(ts, branches)):
+        t_prev = ts[i + 1] if i + 1 < steps else -1
+        x2 = torch.cat([x, x], dim=0)
+        tt = torch.full((x2.shape[0],), t, device=x.device, dtype=torch.int64)
+        if br == FULL:
+            eps2, feats = unet(cfg, p, x2, tt, ctx2, capture=(e_sk, e_rf))
+        else:
+            entry = e_sk if br == SKETCH else e_rf
+            eps2, _ = unet(cfg, p, x2, tt, ctx2, entry=entry, feat=feats[entry])
+        e_c, e_u = eps2.chunk(2, dim=0)
+        ring = [e_u + g * (e_c - e_u)] + ring[:3]
+        eps = plms_eps(ring)
+        a_t = ab[t]
+        a_p = ab[t_prev] if t_prev >= 0 else torch.ones((), device=x.device)
+        x0 = (x - torch.sqrt(1 - a_t) * eps) / torch.sqrt(a_t)
+        x = torch.sqrt(a_p) * x0 + torch.sqrt(1 - a_p) * eps
+    return x
