@@ -27,6 +27,11 @@ MAX_HEAD_DIM = 160
 
 
 def mha(q, k, v, o_proj, n_heads: int) -> torch.Tensor:
+    return mha_core(q, k, v, n_heads) @ o_proj
+
+
+def mha_core(q, k, v, n_heads: int) -> torch.Tensor:
+    """:func:`mha` without its output projection: [B, Lq, C]."""
     bsz, lq, c = q.shape
     lk = k.shape[1]
     dh = c // n_heads
@@ -35,8 +40,7 @@ def mha(q, k, v, o_proj, n_heads: int) -> torch.Tensor:
     vh = v.reshape(bsz, lk, n_heads, dh).transpose(1, 2)
     logits = (qh @ kh.transpose(-1, -2)).float()
     w = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = (w @ vh).transpose(1, 2).reshape(bsz, lq, c)
-    return out @ o_proj
+    return (w @ vh).transpose(1, 2).reshape(bsz, lq, c)
 
 
 def flash_attention_ref(

@@ -12,14 +12,20 @@ per engine:
   JAX package builds its ``"pallas"`` backend.  On a CUDA tensor a
   wrapper launches its kernel or raises; it takes the plain version only
   for a tensor on the CPU.
+
+While a ``torch.profiler`` collects, each call opens its work
+ranges (:mod:`repro_torch.common.trace`): ``uniconv``, ``stream_group_norm``,
+``attention_core`` around the attention's core and ``linear`` around its
+out-projection.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
+from repro_torch.common import trace as T
 from repro_torch.kernels import KERNEL_REGISTRY
-from repro_torch.kernels.flash_attention.ops import mha
+from repro_torch.kernels.flash_attention.ops import mha_core
 from repro_torch.kernels.stream_norm.ops import stream_group_norm_plain
 from repro_torch.kernels.uniconv.ops import uniconv_apply
 
@@ -36,6 +42,11 @@ class KernelBackend:
       ``p = {"scale", "bias"}``;
     * ``attention(q, k, v, o_proj, n_heads)``: multi-head softmax attention
       over projected [B, L, C] tensors, including the output projection.
+
+    ``conv`` and ``attention`` are held as :func:`~repro_torch.common.trace.backend_call`
+    wrappers of the functions given, so that under a backend built over
+    another's (a harness that times each call) the inner call's yielding
+    ranges stay shut.
     """
 
     name: str
@@ -43,14 +54,36 @@ class KernelBackend:
     group_norm: Callable[..., Any]
     attention: Callable[..., Any]
 
+    def __post_init__(self):
+        for field in ("conv", "attention"):
+            object.__setattr__(self, field, T.backend_call(getattr(self, field)))
+
 
 def _split_heads(x, n_heads: int):
     b, l, c = x.shape
     return x.reshape(b, l, n_heads, c // n_heads).transpose(1, 2).contiguous()
 
 
+def _project(out, o_proj):
+    """An attention call's output projection, in its ``linear`` range."""
+    with T.work("linear", T.dense_cost, (out, o_proj), yields=True):
+        return out @ o_proj
+
+
+def _eager_conv(w, b, x, hw, ksize, stride=1):
+    with T.work("uniconv", T.conv_cost, x.shape, w.shape, hw, ksize, stride, yields=True):
+        return uniconv_apply(w, b, x, hw, ksize, stride)
+
+
 def _eager_group_norm(x, p, groups, *, eps=1e-5, silu=False):
-    return stream_group_norm_plain(x, p["scale"], p["bias"], groups=groups, eps=eps, silu=silu)
+    with T.work("stream_group_norm", T.group_norm_cost, x, p):
+        return stream_group_norm_plain(x, p["scale"], p["bias"], groups=groups, eps=eps, silu=silu)
+
+
+def _eager_attention(q, k, v, o_proj, n_heads):
+    with T.work("attention_core", T.attention_core_cost, q.shape, k.shape):
+        out = mha_core(q, k, v, n_heads)
+    return _project(out, o_proj)
 
 
 def _make_cuda() -> KernelBackend:
@@ -59,24 +92,29 @@ def _make_cuda() -> KernelBackend:
     flash_attention = KERNEL_REGISTRY["flash_attention"][0]
 
     def conv(w, b, x, hw, ksize, stride=1):
-        return uniconv(x, w, b, hw, ksize, stride)
+        with T.work("uniconv", T.conv_cost, x.shape, w.shape, hw, ksize, stride, yields=True):
+            return uniconv(x, w, b, hw, ksize, stride)
 
     def group_norm(x, p, groups, *, eps=1e-5, silu=False):
-        return stream_group_norm(x, p["scale"], p["bias"], groups=groups, eps=eps, silu=silu)
+        with T.work("stream_group_norm", T.group_norm_cost, x, p):
+            return stream_group_norm(x, p["scale"], p["bias"], groups=groups, eps=eps, silu=silu)
 
     def attention(q, k, v, o_proj, n_heads):
         # the kernel applies the 1/sqrt(dh) scale itself, so q goes in unscaled
         bsz, lq, c = q.shape
-        out = flash_attention(
-            _split_heads(q, n_heads), _split_heads(k, n_heads), _split_heads(v, n_heads),
-            causal=False,
-        )
-        return out.transpose(1, 2).reshape(bsz, lq, c) @ o_proj
+        heads = [_split_heads(t, n_heads) for t in (q, k, v)]
+        # the core range holds the kernel alone, so a range around the whole
+        # call keeps its first kernels (the head splits) and, the projection's
+        # range yielding to it, its last
+        with T.work("attention_core", T.attention_core_cost, q.shape, k.shape):
+            out = flash_attention(*heads, causal=False)
+        del heads  # freed before the projection, as the call's temporaries
+        return _project(out.transpose(1, 2).reshape(bsz, lq, c), o_proj)
 
     return KernelBackend("cuda", conv, group_norm, attention)
 
 
-EAGER = KernelBackend("eager", uniconv_apply, _eager_group_norm, mha)
+EAGER = KernelBackend("eager", _eager_conv, _eager_group_norm, _eager_attention)
 CUDA = _make_cuda()
 
 

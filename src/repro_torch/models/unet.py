@@ -19,6 +19,7 @@ from typing import Any, Sequence
 
 import torch
 
+from repro_torch.common import trace as T
 from repro_torch.common.types import UNetConfig
 from repro_torch.kernels.flash_attention.ops import mha as _mha  # noqa: F401 (counterpart name)
 from repro_torch.kernels.stream_norm.ops import group_norm  # noqa: F401 (counterpart name)
@@ -78,6 +79,13 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def _dense(*products) -> list[torch.Tensor]:
+    """``x @ w``, plus ``b`` where given, of each ``(x, w)`` or ``(x, w, b)``,
+    in one ``linear`` range (:mod:`repro_torch.common.trace`)."""
+    with T.work("linear", T.dense_cost, *products):
+        return [x @ w + b[0] if b else x @ w for x, w, *b in products]
+
+
 # ---------------------------------------------------------------------------
 # ResBlock and transformer block
 # ---------------------------------------------------------------------------
@@ -100,7 +108,7 @@ def apply_res(p: Params, x, temb, hw, groups: int, backend=None) -> torch.Tensor
     bk = resolve_backend(backend)
     h = bk.group_norm(x, p["gn1"], groups, silu=True)
     h = bk.conv(p["conv1"]["w"], p["conv1"]["b"], h, hw, 3)
-    h = h + (_silu(temb) @ p["t_proj"]["w"] + p["t_proj"]["b"])[:, None, :]
+    h = h + _dense((_silu(temb), p["t_proj"]["w"], p["t_proj"]["b"]))[0][:, None, :]
     h = bk.group_norm(h, p["gn2"], groups, silu=True)
     h = bk.conv(p["conv2"]["w"], p["conv2"]["b"], h, hw, 3)
     if "skip" in p:
@@ -139,14 +147,17 @@ def apply_tf(p: Params, x, ctx, hw, n_heads: int, groups: int, backend=None) -> 
     h = bk.conv(p["proj_in"]["w"], p["proj_in"]["b"], h, hw, 1)
 
     z = layer_norm(h, p["ln1"])
-    h = h + bk.attention(z @ p["self_q"], z @ p["self_k"], z @ p["self_v"], p["self_o"], n_heads)
+    h = h + bk.attention(
+        *_dense((z, p["self_q"]), (z, p["self_k"]), (z, p["self_v"])), p["self_o"], n_heads
+    )
     z = layer_norm(h, p["ln2"])
     h = h + bk.attention(
-        z @ p["cross_q"], ctx @ p["cross_k"], ctx @ p["cross_v"], p["cross_o"], n_heads
+        *_dense((z, p["cross_q"]), (ctx, p["cross_k"]), (ctx, p["cross_v"])), p["cross_o"], n_heads
     )
     z = layer_norm(h, p["ln3"])
-    gate, val = torch.chunk(z @ p["ff_in"], 2, dim=-1)
-    h = h + (gate * torch.sigmoid(1.702 * gate) * val) @ p["ff_out"]  # paper's sigmoid GELU
+    gate, val = torch.chunk(_dense((z, p["ff_in"]))[0], 2, dim=-1)
+    # paper's sigmoid GELU
+    h = h + _dense((gate * torch.sigmoid(1.702 * gate) * val, p["ff_out"]))[0]
 
     h = bk.conv(p["proj_out"]["w"], p["proj_out"]["b"], h, hw, 1)
     return h + res0
@@ -295,7 +306,8 @@ def unet_apply(
 
     temb = timestep_embedding(t, cfg.base_channels).to(x.dtype)
     tm = params["time_mlp"]
-    temb = _silu(temb @ tm["w1"] + tm["b1"]) @ tm["w2"] + tm["b2"]
+    temb = _dense((temb, tm["w1"], tm["b1"]))[0]
+    temb = _dense((_silu(temb), tm["w2"], tm["b2"]))[0]
 
     up_plan = _up_plan(cfg)
     n_up = len(up_plan)

@@ -35,6 +35,10 @@ accepted request.  Callbacks run on the driver thread and must not block
 :meth:`shutdown` drains gracefully: new submissions are refused, every
 request already accepted runs to completion (or cancellation), then the
 thread exits and the final serving summary is returned.
+
+While a profiler started on the driver thread collects, each iteration's
+inbox pump and event delivery (callbacks included) run in the
+``driver.inbox`` and ``driver.events`` ranges (:mod:`repro_torch.common.trace`).
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch.common import trace as T
 from repro_torch.serving.engine import CompletedRequest, GenRequest
 
 #: event names that end a request's stream
@@ -513,16 +518,18 @@ class EngineDriver:
         try:
             while True:
                 busy = eng.n_active > 0 or eng.n_pending > 0
-                self._pump_inbox(block=not busy)
+                with T.phase("driver.inbox"):
+                    self._pump_inbox(block=not busy)
                 busy = eng.n_active > 0 or eng.n_pending > 0
                 if not busy:
                     if self._stopping and self._inbox.empty():
                         break
                     continue
                 done = eng.step(now_s=self._clock(), clock=self._clock)
-                self._announce_progress()
-                for c in done:
-                    self._finish(c)
+                with T.phase("driver.events"):
+                    self._announce_progress()
+                    for c in done:
+                        self._finish(c)
         except BaseException as err:  # engine failure: fail every open stream
             self._fail_open(err)
             self._final_summary = dict(self._snapshot(), error=repr(err))

@@ -32,6 +32,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.common import trace as T
 from repro_torch.common.sharding import lane_devices, resolve_device
 from repro_torch.common.tree import tree_map
 from repro_torch.common.types import DiffusionConfig, PASPlan, UNetConfig
@@ -581,47 +582,56 @@ class DiffusionEngine:
 
         ``clock`` (same origin as ``now_s``) re-reads the time after the
         retirement sync, so completion stamps include the queued device work.
+        While a profiler collects, each phase runs in its range
+        (:mod:`repro_torch.common.trace`): ``engine.backfill``, ``vote``,
+        ``upload`` (the advance mask and cache vectors to the device, which
+        blocks until the queued micro-steps finish), ``dispatch`` and
+        ``retire``.
         """
-        self._backfill(now_s)
+        with T.phase("engine.backfill"):
+            self._backfill(now_s)
         active = self._active_lanes()
         if not active:
             return []
         t_step0 = time.perf_counter()
 
-        planned_of, hit_slots, effective = self._vote_inputs(active)
-        b_star = self.scheduler.pick_branch(effective, self._stall[active])
+        with T.phase("engine.vote"):
+            planned_of, hit_slots, effective = self._vote_inputs(active)
+            b_star = self.scheduler.pick_branch(effective, self._stall[active])
 
-        # the advance mask follows from the host-known plans and cache keys:
-        # no device sync
-        n = self.config.n_lanes
-        sel = np.zeros((n,), bool)
-        advanced = np.asarray(active)[effective == b_star]
-        sel[advanced] = True
-        sel_t = torch.from_numpy(sel).to(self.device)
-        n_demoted = n_demoted_rf = 0
-        if self.cache is not None:
-            feat_src = np.full((n,), -1, np.int64)
-            # float32, as the JAX engine ships it: the device compares this
-            # distance strictly against the lane's float32 threshold
-            feat_dist = np.full((n,), np.inf, np.float32)
-            if b_star in (SM.SKETCH, SM.REFINE):
-                n_demoted, n_demoted_rf = self._settle_partial(
-                    advanced, planned_of, hit_slots, feat_src, feat_dist)
-            self._micro(
-                self._state, b_star, sel_t,
+            # the advance mask follows from the host-known plans and cache keys:
+            # no device sync
+            n = self.config.n_lanes
+            sel = np.zeros((n,), bool)
+            advanced = np.asarray(active)[effective == b_star]
+            sel[advanced] = True
+            n_demoted = n_demoted_rf = 0
+            if self.cache is not None:
+                feat_src = np.full((n,), -1, np.int64)
+                # float32, as the JAX engine ships it: the device compares this
+                # distance strictly against the lane's float32 threshold
+                feat_dist = np.full((n,), np.inf, np.float32)
+                if b_star in (SM.SKETCH, SM.REFINE):
+                    n_demoted, n_demoted_rf = self._settle_partial(
+                        advanced, planned_of, hit_slots, feat_src, feat_dist)
+        t_wait = time.perf_counter()
+        with T.phase("engine.upload"):
+            sel_t = torch.from_numpy(sel).to(self.device)
+            cache_args = () if self.cache is None else (
                 torch.from_numpy(feat_src).to(self.device),
                 torch.from_numpy(feat_dist).to(self.device),
                 self.cache.state,
             )
-            if b_star == SM.FULL:
+        self.metrics.record_wait(time.perf_counter() - t_wait)
+        n_adv = len(advanced)
+        with T.phase("engine.dispatch"):
+            self._micro(self._state, b_star, sel_t, *cache_args, n_advanced=n_adv)
+            if self.cache is not None and b_star == SM.FULL:
                 self._reserve_captures(advanced)
-        else:
-            self._micro(self._state, b_star, sel_t)
 
         self._lane_step[sel] += 1
         self._stall[active] += 1
         self._stall[sel] = 0
-        n_adv = len(advanced)
         self.metrics.record_step(
             n, len(active), n_adv,
             n_full=n_adv if b_star == SM.FULL else 0,
@@ -629,7 +639,8 @@ class DiffusionEngine:
             n_refine=n_adv if b_star == SM.REFINE else 0,
             n_demoted=n_demoted, n_demoted_refine=n_demoted_rf,
         )
-        done = self._retire(active, now_s, clock)
+        with T.phase("engine.retire"):
+            done = self._retire(active, now_s, clock)
         self.metrics.record_step_time(self.config.kernels, time.perf_counter() - t_step0)
         return done
 
@@ -645,8 +656,12 @@ class DiffusionEngine:
             latent = self._lane_latent(lane).clone()
             image = None
             if self._decoder is not None:
-                image = self._decoder(latent[None])[0].cpu().numpy()
-            latent = latent.cpu().numpy()  # syncs the queued micro-steps
+                image = self._decoder(latent[None])[0]
+            t_wait = time.perf_counter()
+            # the first copy to the host waits for the queued micro-steps and the decode
+            image = None if image is None else image.cpu().numpy()
+            latent = latent.cpu().numpy()
+            self.metrics.record_wait(time.perf_counter() - t_wait)
             done.append(
                 CompletedRequest(
                     rid=req.rid,
@@ -840,45 +855,51 @@ class ShardedDiffusionEngine(DiffusionEngine):
     ) -> list[CompletedRequest]:
         """Backfill, run one micro-step on every shard with an active lane,
         each in its own shard's vote, retire finished lanes.  A lane
-        advances when its effective class is its shard's vote."""
-        self._backfill(now_s)
+        advances when its effective class is its shard's vote.  The phase
+        ranges are the single-device engine's, but for ``upload``: each
+        shard's vectors go to its device inside ``dispatch``."""
+        with T.phase("engine.backfill"):
+            self._backfill(now_s)
         active = self._active_lanes()
         if not active:
             return []
         t_step0 = time.perf_counter()
 
-        planned_of, hit_slots, effective = self._vote_inputs(active)
-        n = self.config.n_lanes
-        active_arr = np.asarray(active)
-        shard_ids = active_arr // self.lanes_per_shard
-        b_arr = np.full((self.n_shards,), SM.REFINE, np.int64)  # idle shards: the cheapest
-        sel = np.zeros((n,), bool)
-        votes: list[tuple[int, int, np.ndarray]] = []  # (shard, class, advanced lanes)
-        for s in range(self.n_shards):
-            mine = shard_ids == s
-            if not mine.any():
-                continue
-            lanes_s = active_arr[mine]
-            b = self.scheduler.pick_branch(effective[mine], self._stall[lanes_s])
-            b_arr[s] = b
-            adv = lanes_s[effective[mine] == b]
-            sel[adv] = True
-            votes.append((s, b, adv))
+        with T.phase("engine.vote"):
+            planned_of, hit_slots, effective = self._vote_inputs(active)
+            n = self.config.n_lanes
+            active_arr = np.asarray(active)
+            shard_ids = active_arr // self.lanes_per_shard
+            b_arr = np.full((self.n_shards,), SM.REFINE, np.int64)  # idle shards: the cheapest
+            sel = np.zeros((n,), bool)
+            votes: list[tuple[int, int, np.ndarray]] = []  # (shard, class, advanced lanes)
+            for s in range(self.n_shards):
+                mine = shard_ids == s
+                if not mine.any():
+                    continue
+                lanes_s = active_arr[mine]
+                b = self.scheduler.pick_branch(effective[mine], self._stall[lanes_s])
+                b_arr[s] = b
+                adv = lanes_s[effective[mine] == b]
+                sel[adv] = True
+                votes.append((s, b, adv))
 
-        n_demoted = n_demoted_rf = 0
-        if self.cache is not None:
-            feat_src = np.full((n,), -1, np.int64)
-            feat_dist = np.full((n,), np.inf, np.float32)
-            for s, b, adv in votes:
-                if b != SM.FULL:
-                    d, r = self._settle_partial(
-                        adv, planned_of, hit_slots, feat_src, feat_dist, ring=(s,))
-                    n_demoted += d
-                    n_demoted_rf += r
-            self._micro(self._state, b_arr, sel, feat_src, feat_dist, self.cache.state)
-            self._reserve_shard_captures(votes)
-        else:
-            self._micro(self._state, b_arr, sel)
+            n_demoted = n_demoted_rf = 0
+            if self.cache is not None:
+                feat_src = np.full((n,), -1, np.int64)
+                feat_dist = np.full((n,), np.inf, np.float32)
+                for s, b, adv in votes:
+                    if b != SM.FULL:
+                        d, r = self._settle_partial(
+                            adv, planned_of, hit_slots, feat_src, feat_dist, ring=(s,))
+                        n_demoted += d
+                        n_demoted_rf += r
+        with T.phase("engine.dispatch"):
+            if self.cache is not None:
+                self._micro(self._state, b_arr, sel, feat_src, feat_dist, self.cache.state)
+                self._reserve_shard_captures(votes)
+            else:
+                self._micro(self._state, b_arr, sel)
 
         self._lane_step[sel] += 1
         self._stall[active] += 1
@@ -894,7 +915,8 @@ class ShardedDiffusionEngine(DiffusionEngine):
             n_demoted=n_demoted, n_demoted_refine=n_demoted_rf,
             shard_active=[int((shard_ids == s).sum()) for s in range(self.n_shards)],
         )
-        done = self._retire(active, now_s, clock)
+        with T.phase("engine.retire"):
+            done = self._retire(active, now_s, clock)
         self.metrics.record_step_time(self.config.kernels, time.perf_counter() - t_step0)
         return done
 

@@ -51,9 +51,11 @@ Endpoints (HTTP/1.1, ``Connection: close``):
     per-branch-class executed-step counts (``full_steps`` /
     ``sketch_steps`` / ``refine_steps``), cache demotions + hit rate, and
     the per-quality-tier request mix (``quality_mix``), the active kernel
-    backend (``kernels``) and per-backend micro-step timing
-    (``step_time_by_backend``), so mixed-quality streams are observable
-    without the bench harness.
+    backend (``kernels``), the host wall of ``engine.step`` per backend,
+    device waits included (``step_time_by_backend``), and the part of it
+    spent blocked on the device (``step_wait_s``): near the wall, the
+    engine is device-bound; far below it, host-bound.  Mixed-quality
+    streams are observable without the bench harness.
 ``GET /cache/keys?since=N``
     Incremental cache-key gossip: warm-slot key rows (bucket, signature,
     schedule offset, generation stamp — never features) written after

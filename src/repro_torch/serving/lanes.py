@@ -30,6 +30,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.common import trace as T
 from repro_torch.common.sharding import device_guard
 from repro_torch.common.types import DiffusionConfig, PASPlan, UNetConfig
 from repro_torch.core import sampler as SM
@@ -38,6 +39,9 @@ from repro_torch.models.backend import resolve_backend
 from repro_torch.serving.cache import CacheState, select_entry_features
 
 Params = dict[str, Any]
+
+#: the work range of a micro-step of each branch class
+STEP_RANGES = {SM.FULL: "step_full", SM.SKETCH: "step_sketch", SM.REFINE: "step_refine"}
 
 
 @dataclasses.dataclass
@@ -194,7 +198,8 @@ def make_micro_step(
     backend=None,
 ):
     """Build the continuous-batching micro-step
-    ``micro_step(state, b_star, sel, feat_src=None, feat_dist=None, cache=None)``.
+    ``micro_step(state, b_star, sel, feat_src=None, feat_dist=None, cache=None, *,
+    n_advanced=None)``.
 
     It advances, by exactly one denoise step and in place, every lane the
     host-chosen advance mask ``sel`` ([N] bool) selects: one batched U-Net
@@ -213,6 +218,14 @@ def make_micro_step(
     lane's sketch/refine cache (a demoted FULL skipped its own refresh); a
     REFINE step consumes it for that step only.  With no slot used the
     selection is an exact passthrough, bit-identical to the uncached step.
+
+    While a profiler collects, the step's model work, from the U-Net's
+    inputs to the last state write, runs in a ``step_<class>`` range
+    (:mod:`repro_torch.common.trace`) carrying ``n_advanced``, the lanes
+    ``sel`` selects (counted on the device, a sync, where the caller does
+    not say), and the lanes.  The plan gathers before it and the step count
+    after it stay with the range around the call, which so keeps the
+    micro-step's first and last kernels.
     """
     bk = resolve_backend(backend)
     sched = D.make_schedule(dcfg, device)
@@ -226,66 +239,74 @@ def make_micro_step(
         feat_src: torch.Tensor | None = None,  # [N] int64 cache slot per lane, -1 = own
         feat_dist: torch.Tensor | None = None,  # [N] float32 probed distance (inf = none)
         cache: CacheState | None = None,
+        *,
+        n_advanced: int | None = None,
     ) -> None:
+        if b_star not in STEP_RANGES:
+            raise ValueError(f"unknown branch class {b_star}")
         idx = torch.clamp(state.step, max=state.branches.shape[1] - 1)[:, None]
         t = torch.gather(state.ts, 1, idx)[:, 0]
         tp = torch.gather(state.t_prev, 1, idx)[:, 0]
 
-        entry_sk, entry_rf = state.f_sk, state.f_rf
-        if cache is not None and b_star != SM.FULL:
-            thr_t = torch.gather(state.thr, 1, idx)[:, 0]
-            use = (feat_src >= 0) & (feat_dist < thr_t)
-            entry_rf = select_entry_features(state.f_rf, cache.f_rf, feat_src, use)
-            if b_star == SM.SKETCH:
-                entry_sk = select_entry_features(state.f_sk, cache.f_sk, feat_src, use)
+        with T.work(STEP_RANGES[b_star], _lanes, sel, n_advanced):
+            entry_sk, entry_rf = state.f_sk, state.f_rf
+            if cache is not None and b_star != SM.FULL:
+                thr_t = torch.gather(state.thr, 1, idx)[:, 0]
+                use = (feat_src >= 0) & (feat_dist < thr_t)
+                entry_rf = select_entry_features(state.f_rf, cache.f_rf, feat_src, use)
+                if b_star == SM.SKETCH:
+                    entry_sk = select_entry_features(state.f_sk, cache.f_sk, feat_src, use)
 
-        f_sk_new, f_rf_new = state.f_sk, state.f_rf
-        if b_star == SM.FULL:
-            eps, cap = SM.cfg_unet_step(
-                ucfg, params, guidance, state.x, t, state.ctx2, capture=(e_sk, e_rf), backend=bk
-            )
-            f_sk_new, f_rf_new = cap[e_sk], cap[e_rf]
-        elif b_star == SM.SKETCH:
-            eps, _ = SM.cfg_unet_step(
-                ucfg, params, guidance, state.x, t, state.ctx2,
-                entry_step=e_sk, entry_feat=entry_sk, backend=bk,
-            )
-            # the selection becomes the lane's features of record
-            f_sk_new, f_rf_new = entry_sk, entry_rf
-        elif b_star == SM.REFINE:
-            eps, _ = SM.cfg_unet_step(
-                ucfg, params, guidance, state.x, t, state.ctx2,
-                entry_step=e_rf, entry_feat=entry_rf, backend=bk,
-            )
-        else:
-            raise ValueError(f"unknown branch class {b_star}")
+            f_sk_new, f_rf_new = state.f_sk, state.f_rf
+            if b_star == SM.FULL:
+                eps, cap = SM.cfg_unet_step(
+                    ucfg, params, guidance, state.x, t, state.ctx2, capture=(e_sk, e_rf), backend=bk
+                )
+                f_sk_new, f_rf_new = cap[e_sk], cap[e_rf]
+            elif b_star == SM.SKETCH:
+                eps, _ = SM.cfg_unet_step(
+                    ucfg, params, guidance, state.x, t, state.ctx2,
+                    entry_step=e_sk, entry_feat=entry_sk, backend=bk,
+                )
+                # the selection becomes the lane's features of record
+                f_sk_new, f_rf_new = entry_sk, entry_rf
+            else:
+                eps, _ = SM.cfg_unet_step(
+                    ucfg, params, guidance, state.x, t, state.ctx2,
+                    entry_step=e_rf, entry_feat=entry_rf, backend=bk,
+                )
 
-        if use_pndm:
-            x_new, ets_new, n_new = D.pndm_step_batched(
-                sched, state.ets, state.n_ets, state.x, eps, t, tp
+            if use_pndm:
+                x_new, ets_new, n_new = D.pndm_step_batched(
+                    sched, state.ets, state.n_ets, state.x, eps, t, tp
+                )
+            else:
+                x_new = D.ddim_step_batched(sched, state.x, eps, t, tp)
+                ets_new, n_new = state.ets, state.n_ets
+
+            # inpaint blend: re-noise the known region to each lane's target
+            # timestep; where() keeps x_new exactly under an all-ones mask
+            ab = D._alpha_prev(sched, tp)[:, None, None]
+            known = torch.sqrt(ab) * state.x_init + torch.sqrt(1.0 - ab) * state.noise0
+            x_new = torch.where(
+                state.mask >= 1.0, x_new, state.mask * x_new + (1.0 - state.mask) * known
             )
-        else:
-            x_new = D.ddim_step_batched(sched, state.x, eps, t, tp)
-            ets_new, n_new = state.ets, state.n_ets
 
-        # inpaint blend: re-noise the known region to each lane's target
-        # timestep; where() keeps x_new exactly under an all-ones mask
-        ab = D._alpha_prev(sched, tp)[:, None, None]
-        known = torch.sqrt(ab) * state.x_init + torch.sqrt(1.0 - ab) * state.noise0
-        x_new = torch.where(
-            state.mask >= 1.0, x_new, state.mask * x_new + (1.0 - state.mask) * known
-        )
-
-        m3 = sel[:, None, None]
-        sel2 = torch.cat([sel, sel], dim=0)[:, None, None]
-        state.x.copy_(torch.where(m3, x_new, state.x))
-        state.ets.copy_(torch.where(sel[:, None, None, None], ets_new, state.ets))
-        state.n_ets.copy_(torch.where(sel, n_new, state.n_ets))
-        state.f_sk.copy_(torch.where(sel2, f_sk_new, state.f_sk))
-        state.f_rf.copy_(torch.where(sel2, f_rf_new, state.f_rf))
+            m3 = sel[:, None, None]
+            sel2 = torch.cat([sel, sel], dim=0)[:, None, None]
+            state.x.copy_(torch.where(m3, x_new, state.x))
+            state.ets.copy_(torch.where(sel[:, None, None, None], ets_new, state.ets))
+            state.n_ets.copy_(torch.where(sel, n_new, state.n_ets))
+            state.f_sk.copy_(torch.where(sel2, f_sk_new, state.f_sk))
+            state.f_rf.copy_(torch.where(sel2, f_rf_new, state.f_rf))
         state.step += sel.to(state.step.dtype)
 
     return micro_step
+
+
+def _lanes(sel: torch.Tensor, n_advanced: int | None) -> tuple[int, int]:
+    """A micro-step range's two integers: lanes advanced, and lanes."""
+    return (int(sel.sum()) if n_advanced is None else n_advanced), sel.shape[0]
 
 
 # ---------------------------------------------------------------------------
@@ -401,10 +422,11 @@ def make_sharded_micro_step(
                 continue
             to = lambda a: torch.from_numpy(np.ascontiguousarray(a[seg])).to(dev)  # noqa: E731
             with device_guard(dev):
+                n_adv = int(sel[seg].sum())
                 if cache is None:
-                    steps[dev](shard, int(b_arr[d]), to(sel))
+                    steps[dev](shard, int(b_arr[d]), to(sel), n_advanced=n_adv)
                 else:
                     steps[dev](shard, int(b_arr[d]), to(sel), to(feat_src), to(feat_dist),
-                               cache[d])
+                               cache[d], n_advanced=n_adv)
 
     return micro_step

@@ -2,9 +2,10 @@
 
 The port's own copy of ``repro/serving/metrics.py``: one sample per
 micro-step (occupancy, advance efficiency, executed and cache-demoted
-branch classes, host wall time, and the sharded engine's active lanes per
-shard), one per submitted request (its resolved quality tier) and one per
-completed request (queue wait and latency), collapsed by :meth:`summary`.
+branch classes, host wall time and the part of it blocked on the device,
+and the sharded engine's active lanes per shard), one per submitted
+request (its resolved quality tier) and one per completed request (queue
+wait and latency), collapsed by :meth:`summary`.
 """
 from __future__ import annotations
 
@@ -44,6 +45,10 @@ class ServingMetrics:
     #: host wall seconds spent in ``engine.step`` per kernel backend
     #: (dispatch + any retirement sync): {backend: [count, total_s]}
     step_time_by_backend: dict[str, list] = dataclasses.field(default_factory=dict)
+    #: host seconds ``engine.step`` blocked on the device: the advance mask's
+    #: upload (single-device engine), which waits for the queued micro-steps,
+    #: and retirement's copies to the host
+    step_wait_s: float = 0.0
     wall_s: float = 0.0
 
     def record_step(
@@ -75,6 +80,9 @@ class ServingMetrics:
         acc = self.step_time_by_backend.setdefault(backend, [0, 0.0])
         acc[0] += 1
         acc[1] += seconds
+
+    def record_wait(self, seconds: float) -> None:
+        self.step_wait_s += seconds
 
     def record_completion(self, latency_s: float, queue_wait_s: float) -> None:
         self.latencies_s.append(latency_s)
@@ -112,6 +120,7 @@ class ServingMetrics:
                 k: {"steps": c, "mean_s": round(t / max(c, 1), 6)}
                 for k, (c, t) in sorted(self.step_time_by_backend.items())
             },
+            "step_wait_s": round(self.step_wait_s, 6),
             **self._shard_summary(),
         }
 
