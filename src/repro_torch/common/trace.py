@@ -20,7 +20,7 @@ Two kinds of range:
   products outside them, ``models/unet.py`` and the attention call's
   out-projection), and ``step_full`` / ``step_sketch`` / ``step_refine``
   (a micro-step's model work, ``serving/lanes.py``), which carry the lanes
-  advanced and the lanes in place of operations and bytes;
+  advanced and the lanes the U-Net ran on in place of operations and bytes;
 * **phase**, ``repro.<name>`` with no ``|``: a host phase of the engine
   (``engine.backfill`` / ``vote`` / ``upload`` / ``dispatch`` / ``retire``)
   or of the driver (``driver.inbox`` / ``events``).

@@ -584,9 +584,9 @@ class DiffusionEngine:
         retirement sync, so completion stamps include the queued device work.
         While a profiler collects, each phase runs in its range
         (:mod:`repro_torch.common.trace`): ``engine.backfill``, ``vote``,
-        ``upload`` (the advance mask and cache vectors to the device, which
-        blocks until the queued micro-steps finish), ``dispatch`` and
-        ``retire``.
+        ``upload`` (the advance mask, the advancing lanes' indices and the
+        cache vectors to the device, which blocks until the queued
+        micro-steps finish), ``dispatch`` and ``retire``.
         """
         with T.phase("engine.backfill"):
             self._backfill(now_s)
@@ -603,7 +603,7 @@ class DiffusionEngine:
             # no device sync
             n = self.config.n_lanes
             sel = np.zeros((n,), bool)
-            advanced = np.asarray(active)[effective == b_star]
+            advanced = np.asarray(active, np.int64)[effective == b_star]
             sel[advanced] = True
             n_demoted = n_demoted_rf = 0
             if self.cache is not None:
@@ -615,17 +615,19 @@ class DiffusionEngine:
                     n_demoted, n_demoted_rf = self._settle_partial(
                         advanced, planned_of, hit_slots, feat_src, feat_dist)
         t_wait = time.perf_counter()
+        n_adv = len(advanced)
         with T.phase("engine.upload"):
             sel_t = torch.from_numpy(sel).to(self.device)
+            # the U-Net runs on the advancing lanes alone where not all advance
+            lanes_t = None if n_adv == n else torch.from_numpy(advanced).to(self.device)
             cache_args = () if self.cache is None else (
                 torch.from_numpy(feat_src).to(self.device),
                 torch.from_numpy(feat_dist).to(self.device),
                 self.cache.state,
             )
         self.metrics.record_wait(time.perf_counter() - t_wait)
-        n_adv = len(advanced)
         with T.phase("engine.dispatch"):
-            self._micro(self._state, b_star, sel_t, *cache_args, n_advanced=n_adv)
+            self._micro(self._state, b_star, sel_t, *cache_args, n_advanced=n_adv, lanes=lanes_t)
             if self.cache is not None and b_star == SM.FULL:
                 self._reserve_captures(advanced)
 
@@ -633,7 +635,7 @@ class DiffusionEngine:
         self._stall[active] += 1
         self._stall[sel] = 0
         self.metrics.record_step(
-            n, len(active), n_adv,
+            n, len(active), n_adv, n_computed=n_adv,
             n_full=n_adv if b_star == SM.FULL else 0,
             n_sketch=n_adv if b_star == SM.SKETCH else 0,
             n_refine=n_adv if b_star == SM.REFINE else 0,
@@ -909,7 +911,7 @@ class ShardedDiffusionEngine(DiffusionEngine):
             for b in (SM.FULL, SM.SKETCH, SM.REFINE)
         }
         self.metrics.record_step(
-            n, len(active), int(sel.sum()),
+            n, len(active), int(sel.sum()), n_computed=int(sel.sum()),
             n_full=by_class[SM.FULL], n_sketch=by_class[SM.SKETCH],
             n_refine=by_class[SM.REFINE],
             n_demoted=n_demoted, n_demoted_refine=n_demoted_rf,

@@ -187,6 +187,25 @@ def release(state: LaneState, lane: int) -> None:
     state.n_steps[lane] = 0
 
 
+class _Batch(NamedTuple):
+    """What a micro-step reads of the lanes its U-Net runs on: lane-major
+    [n, ...] tensors, then the CFG-doubled [2n, ...] rows."""
+
+    x: torch.Tensor
+    ets: torch.Tensor
+    n_ets: torch.Tensor
+    mask: torch.Tensor
+    x_init: torch.Tensor
+    noise0: torch.Tensor
+    f_sk: torch.Tensor
+    f_rf: torch.Tensor
+    ctx2: torch.Tensor
+
+
+#: the :class:`_Batch` fields in the CFG-doubled layout
+_ROW_FIELDS = ("f_sk", "f_rf", "ctx2")
+
+
 def make_micro_step(
     ucfg: UNetConfig,
     dcfg: DiffusionConfig,
@@ -199,14 +218,19 @@ def make_micro_step(
 ):
     """Build the continuous-batching micro-step
     ``micro_step(state, b_star, sel, feat_src=None, feat_dist=None, cache=None, *,
-    n_advanced=None)``.
+    n_advanced=None, lanes=None)``.
 
     It advances, by exactly one denoise step and in place, every lane the
-    host-chosen advance mask ``sel`` ([N] bool) selects: one batched U-Net
-    call over the whole lane batch in branch class ``b_star``, which the
-    host knows, so only that branch runs (the JAX version's ``lax.switch``).
-    Lanes outside ``sel`` (and empty lanes) are carried through unchanged by
-    masking.
+    host-chosen advance mask ``sel`` ([N] bool) selects, in branch class
+    ``b_star``, which the host knows, so only that branch runs (the JAX
+    version's ``lax.switch``).  ``lanes`` ([n] int64, on the state's
+    device) are the indices of the lanes ``sel`` selects, which the host
+    also knows.  Where they are given and fewer than N, the U-Net, PNDM and
+    the inpaint blend run on those n lanes alone (2n CFG rows, gathered at
+    ``cat(lanes, N + lanes)``), and the step writes their state back in
+    place.  Otherwise one batched U-Net call runs over the whole lane batch,
+    and lanes outside ``sel`` (and empty lanes) are carried through
+    unchanged by masking.  Either way a lane outside ``sel`` keeps every bit.
 
     Without a ``cache`` the partial branches consume the lane's own captured
     features.  With one, ``feat_src`` ([N] slot index, -1 = own) and
@@ -219,18 +243,61 @@ def make_micro_step(
     REFINE step consumes it for that step only.  With no slot used the
     selection is an exact passthrough, bit-identical to the uncached step.
 
-    While a profiler collects, the step's model work, from the U-Net's
-    inputs to the last state write, runs in a ``step_<class>`` range
-    (:mod:`repro_torch.common.trace`) carrying ``n_advanced``, the lanes
-    ``sel`` selects (counted on the device, a sync, where the caller does
-    not say), and the lanes.  The plan gathers before it and the step count
-    after it stay with the range around the call, which so keeps the
-    micro-step's first and last kernels.
+    While a profiler collects, the step's model work, from the lanes'
+    gather to the last state write, runs in a ``step_<class>`` range
+    (:mod:`repro_torch.common.trace`) carrying the lanes advanced
+    (``n_advanced``, or the length of ``lanes``; counted on the device, a
+    sync, where the caller says neither) and the lanes the U-Net ran on.
+    The plan gathers before it and the step count after it stay with the
+    range around the call, which so keeps the micro-step's first and last
+    kernels.
     """
     bk = resolve_backend(backend)
     sched = D.make_schedule(dcfg, device)
     guidance = dcfg.guidance_scale
     use_pndm = dcfg.scheduler == "pndm"
+
+    def denoise(b_star, b: _Batch, t, tp, src, use, cache):
+        """One denoise step of the batch ``b``: (x, ets, n_ets, f_sk, f_rf)
+        after it, each of the last four ``b``'s own where the step leaves
+        it as it was."""
+        entry_sk, entry_rf = b.f_sk, b.f_rf
+        if use is not None:
+            entry_rf = select_entry_features(b.f_rf, cache.f_rf, src, use)
+            if b_star == SM.SKETCH:
+                entry_sk = select_entry_features(b.f_sk, cache.f_sk, src, use)
+
+        f_sk_new, f_rf_new = b.f_sk, b.f_rf
+        if b_star == SM.FULL:
+            eps, cap = SM.cfg_unet_step(
+                ucfg, params, guidance, b.x, t, b.ctx2, capture=(e_sk, e_rf), backend=bk
+            )
+            f_sk_new, f_rf_new = cap[e_sk], cap[e_rf]
+        elif b_star == SM.SKETCH:
+            eps, _ = SM.cfg_unet_step(
+                ucfg, params, guidance, b.x, t, b.ctx2,
+                entry_step=e_sk, entry_feat=entry_sk, backend=bk,
+            )
+            # the selection becomes the lane's features of record
+            f_sk_new, f_rf_new = entry_sk, entry_rf
+        else:
+            eps, _ = SM.cfg_unet_step(
+                ucfg, params, guidance, b.x, t, b.ctx2,
+                entry_step=e_rf, entry_feat=entry_rf, backend=bk,
+            )
+
+        if use_pndm:
+            x_new, ets_new, n_new = D.pndm_step_batched(sched, b.ets, b.n_ets, b.x, eps, t, tp)
+        else:
+            x_new = D.ddim_step_batched(sched, b.x, eps, t, tp)
+            ets_new, n_new = b.ets, b.n_ets
+
+        # inpaint blend: re-noise the known region to each lane's target
+        # timestep; where() keeps x_new exactly under an all-ones mask
+        ab = D._alpha_prev(sched, tp)[:, None, None]
+        known = torch.sqrt(ab) * b.x_init + torch.sqrt(1.0 - ab) * b.noise0
+        x_new = torch.where(b.mask >= 1.0, x_new, b.mask * x_new + (1.0 - b.mask) * known)
+        return x_new, ets_new, n_new, f_sk_new, f_rf_new
 
     def micro_step(
         state: LaneState,
@@ -241,72 +308,56 @@ def make_micro_step(
         cache: CacheState | None = None,
         *,
         n_advanced: int | None = None,
+        lanes: torch.Tensor | None = None,  # [n] int64 indices of the lanes sel selects
     ) -> None:
         if b_star not in STEP_RANGES:
             raise ValueError(f"unknown branch class {b_star}")
+        n = state.n_lanes
         idx = torch.clamp(state.step, max=state.branches.shape[1] - 1)[:, None]
         t = torch.gather(state.ts, 1, idx)[:, 0]
         tp = torch.gather(state.t_prev, 1, idx)[:, 0]
+        if lanes is not None:
+            n_advanced = lanes.shape[0]
+        compact = lanes is not None and n_advanced < n
 
-        with T.work(STEP_RANGES[b_star], _lanes, sel, n_advanced):
-            entry_sk, entry_rf = state.f_sk, state.f_rf
+        with T.work(STEP_RANGES[b_star], _lanes, sel, n_advanced, n_advanced if compact else n):
+            use = None
             if cache is not None and b_star != SM.FULL:
                 thr_t = torch.gather(state.thr, 1, idx)[:, 0]
                 use = (feat_src >= 0) & (feat_dist < thr_t)
-                entry_rf = select_entry_features(state.f_rf, cache.f_rf, feat_src, use)
-                if b_star == SM.SKETCH:
-                    entry_sk = select_entry_features(state.f_sk, cache.f_sk, feat_src, use)
-
-            f_sk_new, f_rf_new = state.f_sk, state.f_rf
-            if b_star == SM.FULL:
-                eps, cap = SM.cfg_unet_step(
-                    ucfg, params, guidance, state.x, t, state.ctx2, capture=(e_sk, e_rf), backend=bk
-                )
-                f_sk_new, f_rf_new = cap[e_sk], cap[e_rf]
-            elif b_star == SM.SKETCH:
-                eps, _ = SM.cfg_unet_step(
-                    ucfg, params, guidance, state.x, t, state.ctx2,
-                    entry_step=e_sk, entry_feat=entry_sk, backend=bk,
-                )
-                # the selection becomes the lane's features of record
-                f_sk_new, f_rf_new = entry_sk, entry_rf
+            if not compact:
+                b = _Batch(*(getattr(state, f) for f in _Batch._fields))
+                x_new, ets_new, n_new, f_sk_new, f_rf_new = denoise(
+                    b_star, b, t, tp, feat_src, use, cache)
+                m3 = sel[:, None, None]
+                sel2 = torch.cat([sel, sel], dim=0)[:, None, None]
+                state.x.copy_(torch.where(m3, x_new, state.x))
+                state.ets.copy_(torch.where(sel[:, None, None, None], ets_new, state.ets))
+                state.n_ets.copy_(torch.where(sel, n_new, state.n_ets))
+                state.f_sk.copy_(torch.where(sel2, f_sk_new, state.f_sk))
+                state.f_rf.copy_(torch.where(sel2, f_rf_new, state.f_rf))
             else:
-                eps, _ = SM.cfg_unet_step(
-                    ucfg, params, guidance, state.x, t, state.ctx2,
-                    entry_step=e_rf, entry_feat=entry_rf, backend=bk,
-                )
-
-            if use_pndm:
-                x_new, ets_new, n_new = D.pndm_step_batched(
-                    sched, state.ets, state.n_ets, state.x, eps, t, tp
-                )
-            else:
-                x_new = D.ddim_step_batched(sched, state.x, eps, t, tp)
-                ets_new, n_new = state.ets, state.n_ets
-
-            # inpaint blend: re-noise the known region to each lane's target
-            # timestep; where() keeps x_new exactly under an all-ones mask
-            ab = D._alpha_prev(sched, tp)[:, None, None]
-            known = torch.sqrt(ab) * state.x_init + torch.sqrt(1.0 - ab) * state.noise0
-            x_new = torch.where(
-                state.mask >= 1.0, x_new, state.mask * x_new + (1.0 - state.mask) * known
-            )
-
-            m3 = sel[:, None, None]
-            sel2 = torch.cat([sel, sel], dim=0)[:, None, None]
-            state.x.copy_(torch.where(m3, x_new, state.x))
-            state.ets.copy_(torch.where(sel[:, None, None, None], ets_new, state.ets))
-            state.n_ets.copy_(torch.where(sel, n_new, state.n_ets))
-            state.f_sk.copy_(torch.where(sel2, f_sk_new, state.f_sk))
-            state.f_rf.copy_(torch.where(sel2, f_rf_new, state.f_rf))
+                rows = torch.cat([lanes, lanes + n])
+                b = _Batch(*(getattr(state, f).index_select(0, rows if f in _ROW_FIELDS else lanes)
+                             for f in _Batch._fields))
+                if use is not None:
+                    feat_src, use = feat_src.index_select(0, lanes), use.index_select(0, lanes)
+                new = denoise(b_star, b, t.index_select(0, lanes), tp.index_select(0, lanes),
+                              feat_src, use, cache)
+                for name, old, value in zip(("x", "ets", "n_ets", "f_sk", "f_rf"),
+                                            (b.x, b.ets, b.n_ets, b.f_sk, b.f_rf), new):
+                    if value is not old:  # a tensor the step left as it was needs no write
+                        getattr(state, name).index_copy_(
+                            0, rows if name in _ROW_FIELDS else lanes, value)
         state.step += sel.to(state.step.dtype)
 
     return micro_step
 
 
-def _lanes(sel: torch.Tensor, n_advanced: int | None) -> tuple[int, int]:
-    """A micro-step range's two integers: lanes advanced, and lanes."""
-    return (int(sel.sum()) if n_advanced is None else n_advanced), sel.shape[0]
+def _lanes(sel: torch.Tensor, n_advanced: int | None, n_computed: int) -> tuple[int, int]:
+    """A micro-step range's two integers: lanes advanced, and lanes the
+    U-Net ran on."""
+    return (int(sel.sum()) if n_advanced is None else n_advanced), n_computed
 
 
 # ---------------------------------------------------------------------------
@@ -398,9 +449,10 @@ def make_sharded_micro_step(
     :class:`~repro_torch.serving.cache.CacheState` list.  Shard ``d`` runs
     :func:`make_micro_step`'s step on its P lanes in class ``b_arr[d]``,
     with its device current, so every kernel launches there and the
-    float32 threshold comparison runs there.  A shard whose mask is all
-    false (an idle shard, parked on REFINE by the engine) is not run: its
-    step would change nothing.
+    float32 threshold comparison runs there; its U-Net runs on the shard's
+    advancing lanes alone (their shard-local indices) where fewer than P
+    advance.  A shard whose mask is all false (an idle shard, parked on
+    REFINE by the engine) is not run: its step would change nothing.
     """
     steps = {
         dev: make_micro_step(ucfg, dcfg, params_on[dev], e_sk, e_rf, device=dev, backend=backend)
@@ -420,13 +472,12 @@ def make_sharded_micro_step(
             seg = slice(d * p, (d + 1) * p)
             if not sel[seg].any():
                 continue
-            to = lambda a: torch.from_numpy(np.ascontiguousarray(a[seg])).to(dev)  # noqa: E731
+            to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
             with device_guard(dev):
-                n_adv = int(sel[seg].sum())
-                if cache is None:
-                    steps[dev](shard, int(b_arr[d]), to(sel), n_advanced=n_adv)
-                else:
-                    steps[dev](shard, int(b_arr[d]), to(sel), to(feat_src), to(feat_dist),
-                               cache[d], n_advanced=n_adv)
+                mine = np.flatnonzero(sel[seg])  # shard-local lanes
+                lanes = to(mine) if len(mine) < p else None
+                args = () if cache is None else (to(feat_src[seg]), to(feat_dist[seg]), cache[d])
+                steps[dev](shard, int(b_arr[d]), to(sel[seg]), *args,
+                           n_advanced=len(mine), lanes=lanes)
 
     return micro_step

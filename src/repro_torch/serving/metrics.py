@@ -1,9 +1,9 @@
 """Serving metrics: latency percentiles, throughput, lane occupancy, cache reuse.
 
 The port's own copy of ``repro/serving/metrics.py``: one sample per
-micro-step (occupancy, advance efficiency, executed and cache-demoted
-branch classes, host wall time and the part of it blocked on the device,
-and the sharded engine's active lanes per shard), one per submitted
+micro-step (occupancy, advance efficiency, lanes computed, executed and
+cache-demoted branch classes, host wall time and the part of it blocked on
+the device, and the sharded engine's active lanes per shard), one per submitted
 request (its resolved quality tier) and one per completed request (queue
 wait and latency), collapsed by :meth:`summary`.
 """
@@ -25,6 +25,9 @@ class ServingMetrics:
     shard_active: list[list[int]] = dataclasses.field(default_factory=list)
     micro_steps: int = 0
     lane_steps_advanced: int = 0
+    #: lanes the micro-steps' U-Net ran on: the lanes advanced where the
+    #: engine runs the advancing lanes alone, every lane of a padded batch
+    lane_steps_computed: int = 0
     #: lane-steps executed per branch class (FULL = a full U-Net pass),
     #: demoted steps counted under the class they executed as
     full_steps: int = 0
@@ -56,9 +59,11 @@ class ServingMetrics:
         n_full: int = 0, n_sketch: int = 0, n_refine: int = 0,
         n_demoted: int = 0, n_demoted_refine: int = 0,
         shard_active: Sequence[int] | None = None,
+        n_computed: int | None = None,  # lanes the U-Net ran on; None = all n_lanes
     ) -> None:
         self.micro_steps += 1
         self.lane_steps_advanced += n_advanced
+        self.lane_steps_computed += n_lanes if n_computed is None else n_computed
         self.full_steps += n_full
         self.sketch_steps += n_sketch
         self.refine_steps += n_refine
@@ -101,6 +106,7 @@ class ServingMetrics:
             "mean_queue_wait_s": mean(self.queue_waits_s),
             "micro_steps": self.micro_steps,
             "lane_steps_advanced": self.lane_steps_advanced,
+            "lane_steps_computed": self.lane_steps_computed,
             "mean_occupancy": mean(self.occupancy),
             "mean_advance_eff": mean(self.advance_eff),
             "full_steps": self.full_steps,

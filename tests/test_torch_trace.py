@@ -5,8 +5,10 @@ its flag test; on (a CPU ``torch.profiler``), every name is one the
 benchmark's trace reduction can file, the engine's and the driver's phases
 come in order, the work ranges' counts are ``bench/flops.py``'s, and their
 operations over one CFG pass of each class add up to the reference's
-(also at ``sd_v14``, on meta tensors).  Tracing changes no output bit, and
-``ServingMetrics.step_wait_s`` counts the engine's waits on the device.
+(also at ``sd_v14``, on meta tensors).  A micro-step's range carries the
+lanes advanced and the lanes its U-Net ran on, which
+``ServingMetrics.lane_steps_computed`` sums.  Tracing changes no output bit,
+and ``ServingMetrics.step_wait_s`` counts the engine's waits on the device.
 """
 from __future__ import annotations
 
@@ -131,7 +133,8 @@ def test_names_and_phase_order(n_shards):
     assert {_kind(n) for _, _, n in steps} == {"step_full", "step_sketch", "step_refine"}
     for s, e, n in steps:
         assert any(ds <= s and e <= de for ds, de in dispatch), n
-        assert 1 <= _ints(n)[0] <= _ints(n)[1] == 2 // n_shards
+        # the U-Net runs on the advancing lanes alone: lanes computed = advanced
+        assert 1 <= _ints(n)[0] == _ints(n)[1] <= 2 // n_shards
     assert drv._final_summary["completed"] == 3 and drv._final_summary["step_wait_s"] > 0
 
 
@@ -149,6 +152,41 @@ def test_micro_step_counts_its_lanes():
         step(state, SM.FULL, torch.tensor([True, False]), n_advanced=1)
     names = [n for _, _, n in _ranges(prof) if n.startswith("repro.step_")]
     assert names == ["repro.step_full|1|2"] * 2
+
+
+def test_step_range_carries_the_lanes_computed():
+    """Handed the advancing lanes, the range carries (n, n) where n < N
+    lanes advance, and (N, N) where all do."""
+    ucfg, dcfg, params, _ = CFG.init_models(EngineConfig(device="cpu", decode_images=False))
+    n_up = U.n_up_steps(ucfg)
+    step = LN.make_micro_step(ucfg, dcfg, params, n_up - 3, n_up - 2, device="cpu")
+    state = LN.init_lanes(ucfg, 3, 4, n_up - 3, n_up - 2, "cpu")
+    plan = LN.make_plan_arrays(dcfg, 4, None, 4)
+    for lane in range(3):
+        LN.admit(state, lane, torch.zeros(ucfg.latent_size**2, ucfg.in_channels),
+                 torch.zeros(ucfg.ctx_len, ucfg.ctx_dim), plan)
+    with _profile() as prof:
+        step(state, SM.FULL, torch.tensor([True, False, True]), lanes=torch.tensor([0, 2]))
+        step(state, SM.FULL, torch.tensor([False, True, False]), lanes=torch.tensor([1]))
+        step(state, SM.FULL, torch.tensor([True] * 3), lanes=torch.tensor([0, 1, 2]))
+    names = [n for _, _, n in _ranges(prof) if n.startswith("repro.step_")]
+    assert names == ["repro.step_full|2|2", "repro.step_full|1|1", "repro.step_full|3|3"]
+
+
+def test_lanes_computed_counter_sums_the_ranges():
+    """``ServingMetrics.lane_steps_computed`` sums the lanes the U-Net ran
+    on: the step ranges' second integers in an engine run, every lane of a
+    batch where a caller does not say."""
+    b = _bundle()
+    with _profile() as prof:
+        _, summary = b.engine.run(_requests(b))
+    ranges = [_ints(n) for _, _, n in _ranges(prof) if n.startswith("repro.step_")]
+    assert summary["lane_steps_computed"] == sum(c for _, c in ranges)
+    assert summary["lane_steps_computed"] == summary["lane_steps_advanced"] < 2 * len(ranges)
+    m = ServingMetrics()
+    m.record_step(8, 8, 3, n_computed=3)
+    m.record_step(8, 6, 6)
+    assert m.lane_steps_computed == 3 + 8 and m.summary()["lane_steps_computed"] == 11
 
 
 def test_call_counts_are_the_benchmarks(monkeypatch):
