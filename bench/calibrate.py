@@ -63,8 +63,9 @@ def main(argv=None) -> int:
     rows = []
     for seed in args.seeds:
         record = serve.run_cell(cell, seed, args.seconds, False)
+        traffic = Traffic(cell.mix, cell.config, seed, cell.model)
         row = dict(cell=cell.name, seed=seed, setup_s=record["setup_s"],
-                   **control_readings(cell, record, Traffic(cell.mix, cell.config, seed), "cuda"))
+                   **control_readings(cell, record, traffic, "cuda"))
         rows.append(row)
         print(json.dumps(row), flush=True)
         if args.out:

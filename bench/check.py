@@ -1,7 +1,8 @@
 """Whether the window's outputs are correct: a sample of the requests that
 finished in the window, each run straight through the plain reference
-(``bench/reference``) from the same noise, prompt embedding, tier and
-seeded weights, compared with what the program served.
+(the configuration's model module, ``bench/reference/<model>.py``) from
+the same noise, conditioning, tier and seeded weights, compared with what
+the program served.
 
 Two numbers are compared, each against its limit in
 ``bench/limits/<cell>.json``:
@@ -19,7 +20,6 @@ from __future__ import annotations
 import numpy as np
 
 from bench.counts import in_window, is_due
-from bench.reference import sd
 from bench.reference.weights import make_weights
 
 #: tiers by the work a request of the tier asks for, most first
@@ -61,24 +61,25 @@ def reference_outputs(cell, record: dict, rids: list[int], device, precision: st
     """The reference's (latent, image) of each request in ``rids``."""
     import torch
 
-    cfg, e = cell.config, cell.config["engine"]
+    cfg, e, model = cell.config, cell.config["engine"], cell.model
     u = cfg["unet"]
-    unet_w, vae_w = make_weights(u, record["seed"], device)
+    unet_w, vae_w = make_weights(u, record["seed"], device, model)
     lhw = (u["latent_size"],) * 2
     out = {}
     by_tier: dict[str, list[int]] = {}
     for i in rids:
         by_tier.setdefault(record["requests"][i]["tier"], []).append(i)
-    with torch.no_grad(), sd.precision(precision, torch.device(device)):
+    stack = lambda arrays: torch.from_numpy(np.stack(arrays)).to(device)  # noqa: E731
+    with torch.no_grad(), model.precision(precision, torch.device(device)):
         for tier, ids in sorted(by_tier.items()):
             for j in range(0, len(ids), BATCH):
                 part = ids[j:j + BATCH]
                 reqs = [traffic.request(i) for i in part]
-                noise = torch.from_numpy(np.stack([r.noise for r in reqs])).to(device)
-                ctx = torch.from_numpy(np.stack([r.ctx for r in reqs])).to(device)
-                lat = sd.sample(u, dict(cfg["sampler"]), unet_w, noise, ctx, tier,
-                                l_sketch=e["l_sketch"], l_refine=e["l_refine"])
-                img = sd.vae_decode(vae_w, lat, lhw)
+                noise = stack([r.noise for r in reqs])
+                cond = {k: stack([r.cond[k] for r in reqs]) for k in reqs[0].cond}
+                lat = model.sample(u, dict(cfg["sampler"]), unet_w, noise, cond, tier,
+                                   l_sketch=e["l_sketch"], l_refine=e["l_refine"])
+                img = model.vae_decode(vae_w, lat, lhw)
                 for i, a, b in zip(part, lat.cpu().numpy(), img.cpu().numpy()):
                     out[i] = (a, b)
     del unet_w, vae_w

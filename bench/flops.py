@@ -45,37 +45,43 @@ def least_seconds(ops: float, nbytes: float) -> float:
     return max(ops / PEAK_FLOPS, nbytes / PEAK_BYTES_S)
 
 
-def class_flops(cfg: dict, l_sketch: int, l_refine: int) -> dict[str, int]:
+def class_flops(cfg: dict, l_sketch: int, l_refine: int, model=None) -> dict[str, int]:
     """Operations of one CFG pair (batch 2) of each micro-step class, and of
-    one VAE decode, counted by ``FlopCounterMode`` over the reference on
-    meta tensors."""
+    one VAE decode, counted by ``FlopCounterMode`` over the model module's
+    reference (``sd`` where ``model`` is None) on meta tensors, its
+    conditioning shaped by ``conditioning_shapes``."""
     import torch
 
-    from bench.reference import sd
-    from bench.reference.weights import _Spec, _unet_layout, _vae_layout
+    from bench.reference.weights import _Spec
 
-    def meta_tree(layout, *args):
+    if model is None:
+        from bench import spec
+
+        model = spec.load_model(spec.DEFAULT_MODEL)
+
+    def meta_tree(layout):
         s = _Spec()
-        tree = layout(s, *args)
+        tree = layout(s, cfg)
         for holder, key, shape, _, _ in s.leaves:
             holder[key] = torch.empty(shape, device="meta")
         return tree
 
-    p = meta_tree(_unet_layout, cfg)
-    vae = meta_tree(_vae_layout, cfg["in_channels"])
+    p = meta_tree(model.unet_layout)
+    vae = meta_tree(model.vae_layout)
     L = cfg["latent_size"] ** 2
     x = torch.empty((2, L, cfg["in_channels"]), device="meta")
     t = torch.zeros((2,), dtype=torch.int64, device="meta")
-    ctx = torch.empty((2, cfg["ctx_len"], cfg["ctx_dim"]), device="meta")
-    n_up = sd.n_up_steps(cfg)
+    cond = {k: torch.empty((2, *shape), device="meta")
+            for k, shape in model.conditioning_shapes(cfg).items()}
+    n_up = model.n_up_steps(cfg)
     out = {}
     for name, entry in (("FULL", 0), ("SKETCH", n_up - l_sketch), ("REFINE", n_up - l_refine)):
-        feat = torch.empty(sd.feature_shape(cfg, entry, 2), device="meta") if entry else None
+        feat = torch.empty(model.feature_shape(cfg, entry, 2), device="meta") if entry else None
         with FlopCounterMode(display=False) as fc:
-            sd.unet(cfg, p, x, t, ctx, entry=entry, feat=feat)
+            model.unet(cfg, p, x, t, cond, entry=entry, feat=feat)
         out[name] = fc.get_total_flops()
     z = torch.empty((1, L, cfg["in_channels"]), device="meta")
     with FlopCounterMode(display=False) as fc:
-        sd.vae_decode(vae, z, (cfg["latent_size"],) * 2)
+        model.vae_decode(vae, z, (cfg["latent_size"],) * 2)
     out["DECODE"] = fc.get_total_flops()
     return out

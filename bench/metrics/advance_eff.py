@@ -1,6 +1,8 @@
-"""Lane-steps advanced over lane-steps computed (micro-steps x lanes) in
-the window, from the engine's counters: the share of the batched U-Net
-work that served a request."""
+"""Lane-steps advanced over micro-steps x lanes in the window, from the
+engine's counters: how fully the branch vote packs the lanes' plans into
+micro-steps.  The U-Net runs on the advancing lanes only, so a poor
+packing costs micro-steps (host time and launches), not device work on
+idle lanes."""
 
 
 def read(record):

@@ -21,9 +21,33 @@ TF32 off (the reference), ``"tf32"`` turns it on (the control); on a CPU,
 which has no TF32, ``"tf32"`` rounds each product's operands to TF32.
 
 The weights use the served tree layout (nested dicts and lists; a K x K
-conv weight is [K * K, Cin, Cout], tap ``ky * K + kx``), which the
-benchmark builds itself in :mod:`bench.reference.weights`.  This module
-imports nothing but torch.
+conv weight is [K * K, Cin, Cout], tap ``ky * K + kx``), laid out here by
+:func:`unet_layout` and :func:`vae_layout` and drawn from the seed by
+:mod:`bench.reference.weights`.
+
+It is the model module ``sd``, the one a configuration gets when its file
+names no ``"model"``.  A model module (``bench/reference/<model>.py``) is
+loaded by file path (``bench/spec.py::load_model``) and gives:
+
+* ``unet_layout(s, cfg)`` and ``vae_layout(s, cfg)``: the weight trees,
+  built with the recording calls of ``weights._Spec`` (``conv``, ``norm``,
+  ``dense``, ``bias``, ``normal``), in the order the leaves are drawn;
+* ``conditioning(cfg, rng)``: one request's named conditioning arrays
+  (float32 numpy), drawn from ``rng`` before the request's noise, and
+  ``conditioning_shapes(cfg)``: their shapes, name -> shape; each name is
+  also the keyword the program's ``GenRequest`` takes it by;
+* ``unet(cfg, p, x, t, cond, *, entry, feat, capture)``, where ``cond``
+  holds the batched arrays by name, ``n_up_steps(cfg)`` and
+  ``feature_shape(cfg, entry, batch)`` (the partial passes' entry points);
+* ``sample(cfg, sampler, p, noise, cond, tier, *, l_sketch, l_refine)``:
+  requests of one tier straight through, the model building the
+  unconditional half of classifier-free guidance itself;
+* ``vae_decode(p, z, hw)``, ``pas_branches(plan, steps)``,
+  ``tier_plan(tier, steps)`` and ``precision(mode, device)``.
+
+``cfg`` is the configuration file's ``unet`` block.  A model module
+imports torch, contextlib, math and typing only: nothing of the program
+and no other module of the benchmark.
 """
 from __future__ import annotations
 
@@ -184,16 +208,22 @@ def feature_shape(cfg: dict, entry: int, batch: int) -> tuple[int, int, int]:
     return (batch, size * size, c)
 
 
-def unet(cfg: dict, p: Params, x, t, ctx, *, entry: int = 0, feat=None, capture=()):
-    """eps for x [B, L, C_in] at timesteps t [B] under ctx [B, ctx_len,
-    ctx_dim]; ``entry > 0`` enters up-step ``entry`` with ``feat``.
+def time_embedding(cfg: dict, p: Params, t, cond: dict) -> torch.Tensor:
+    """The time MLP over the sinusoidal embedding of t [B]: [B, time_dim]."""
+    tm = p["time_mlp"]
+    temb = timestep_embedding(t, cfg["base_channels"])
+    return mm(F.silu(mm(temb, tm["w1"]) + tm["b1"]), tm["w2"]) + tm["b2"]
+
+
+def unet(cfg: dict, p: Params, x, t, cond: dict, *, entry: int = 0, feat=None, capture=()):
+    """eps for x [B, L, C_in] at timesteps t [B] under ``cond["ctx"]`` [B,
+    ctx_len, ctx_dim]; ``entry > 0`` enters up-step ``entry`` with ``feat``.
     Returns (eps, {up-step: its main-branch input}) for the steps in
     ``capture``."""
     size, groups, heads = cfg["latent_size"], cfg["groups"], cfg["n_heads"]
     hw = (size, size)
-    tm = p["time_mlp"]
-    temb = timestep_embedding(t, cfg["base_channels"])
-    temb = mm(F.silu(mm(temb, tm["w1"]) + tm["b1"]), tm["w2"]) + tm["b2"]
+    ctx = cond["ctx"]
+    temb = time_embedding(cfg, p, t, cond)
 
     ups = up_blocks(cfg)
     skips_needed = len(ups) - entry
@@ -248,6 +278,114 @@ def vae_decode(p: Params, z: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
     h, hw = upsample2x(h, hw)
     h = F.silu(conv(p["dec"][2], h, hw, 3))
     return conv(p["dec_out"], group_norm(h, p["dec_gn"], 8), hw, 3)
+
+
+# ---------------------------------------------------------------------------
+# the weight trees and one request's conditioning
+# ---------------------------------------------------------------------------
+
+
+def _res_layout(s, cin: int, cout: int, tdim: int) -> Params:
+    d: Params = {"gn1": s.norm(cin), "conv1": s.conv(3, cin, cout), "t_proj": {}}
+    s.dense(d["t_proj"], "w", tdim, cout)
+    s.bias(d["t_proj"], "b", cout)
+    d["gn2"] = s.norm(cout)
+    d["conv2"] = s.conv(3, cout, cout)
+    if cin != cout:
+        d["skip"] = s.conv(1, cin, cout)
+    return d
+
+
+def _tf_layout(s, c: int, ctx_dim: int) -> Params:
+    d: Params = {"gn": s.norm(c), "proj_in": s.conv(1, c, c), "ln1": s.norm(c)}
+    for k in ("self_q", "self_k", "self_v", "self_o"):
+        s.dense(d, k, c, c)
+    d["ln2"] = s.norm(c)
+    s.dense(d, "cross_q", c, c)
+    s.dense(d, "cross_k", ctx_dim, c)
+    s.dense(d, "cross_v", ctx_dim, c)
+    s.dense(d, "cross_o", c, c)
+    d["ln3"] = s.norm(c)
+    s.dense(d, "ff_in", c, 8 * c)  # GEGLU: gate and value, 4c each
+    s.dense(d, "ff_out", 4 * c, c)
+    d["proj_out"] = s.conv(1, c, c)
+    return d
+
+
+def unet_layout(s, cfg: dict) -> Params:
+    """The served U-Net's tree."""
+    base, tdim = cfg["base_channels"], cfg["time_dim"]
+    chans = [base * m for m in cfg["channel_mult"]]
+    n_levels, n_res = len(chans), cfg["n_res_blocks"]
+    p: Params = {"time_mlp": {}, "down": [], "up": []}
+    s.dense(p["time_mlp"], "w1", base, tdim)
+    s.bias(p["time_mlp"], "b1", tdim)
+    s.dense(p["time_mlp"], "w2", tdim, tdim)
+    s.bias(p["time_mlp"], "b2", tdim)
+    p["conv_in"] = s.conv(3, cfg["in_channels"], base)
+    tfs = lambda c: [_tf_layout(s, c, cfg["ctx_dim"]) for _ in range(cfg["tf_depth"])]  # noqa: E731
+    ch = base
+    for lvl, cout in enumerate(chans):
+        for _ in range(n_res):
+            blk = {"res": _res_layout(s, ch, cout, tdim)}
+            if lvl in cfg["attn_levels"]:
+                blk["tf"] = tfs(cout)
+            p["down"].append(blk)
+            ch = cout
+        if lvl != n_levels - 1:
+            p["down"].append({"downsample": s.conv(3, ch, ch)})
+    p["mid"] = {"res1": _res_layout(s, ch, ch, tdim), "tf": tfs(ch),
+                "res2": _res_layout(s, ch, ch, tdim)}
+    skip_ch = [base]
+    for lvl, cout in enumerate(chans):
+        skip_ch += [cout] * n_res + ([cout] if lvl != n_levels - 1 else [])
+    for lvl in reversed(range(n_levels)):
+        cout = chans[lvl]
+        for i in range(n_res + 1):
+            blk = {"res": _res_layout(s, ch + skip_ch.pop(), cout, tdim)}
+            if lvl in cfg["attn_levels"]:
+                blk["tf"] = tfs(cout)
+            if i == n_res and lvl != 0:
+                blk["upsample"] = s.conv(3, cout, cout)
+            p["up"].append(blk)
+            ch = cout
+    p["gn_out"] = s.norm(base)
+    p["conv_out"] = s.conv(3, base, cfg["out_channels"])
+    return p
+
+
+def vae_layout(s, cfg: dict) -> Params:
+    """The served VAE's tree (encoder and decoder) over ``cfg``'s latent
+    channels."""
+    latent_channels, img_channels, base = cfg["in_channels"], 3, 32
+    p: Params = {"enc": [s.conv(3, cin, cout) for cin, cout in (
+        (img_channels, base), (base, 2 * base), (2 * base, 2 * base), (2 * base, 2 * base))]}
+    p["enc_gn"] = s.norm(2 * base)
+    p["enc_out"] = s.conv(1, 2 * base, 2 * latent_channels)
+    p["dec_in"] = s.conv(1, latent_channels, 2 * base)
+    p["dec"] = [s.conv(3, cin, cout) for cin, cout in (
+        (2 * base, 2 * base), (2 * base, 2 * base), (2 * base, base))]
+    p["dec_gn"] = s.norm(base)
+    p["dec_out"] = s.conv(3, base, img_channels)
+    return p
+
+
+def conditioning(cfg: dict, rng) -> dict:
+    """One request's prompt embedding ``ctx`` [ctx_len, ctx_dim]: normal,
+    scale 0.2, from the numpy generator ``rng``."""
+    ctx = rng.normal(size=(cfg["ctx_len"], cfg["ctx_dim"])) * 0.2
+    return {"ctx": ctx.astype("float32")}
+
+
+def conditioning_shapes(cfg: dict) -> dict[str, tuple[int, ...]]:
+    return {"ctx": (cfg["ctx_len"], cfg["ctx_dim"])}
+
+
+def with_unconditional(cond: dict) -> dict:
+    """The CFG batch: each array's conditioned rows, then as many
+    unconditional ones (a zero embedding)."""
+    return {k: torch.cat([v, torch.zeros_like(v)], dim=0) for k, v in cond.items()}
+
 
 
 # ---------------------------------------------------------------------------
@@ -318,17 +456,18 @@ def plms_eps(ring: list[torch.Tensor]) -> torch.Tensor:
     return (55 * e[0] - 59 * e[1] + 37 * e[2] - 9 * e[3]) / 24
 
 
-def sample(cfg: dict, sampler: dict, p: Params, noise, ctx, tier: str, *, l_sketch: int,
+def sample(cfg: dict, sampler: dict, p: Params, noise, cond: dict, tier: str, *, l_sketch: int,
            l_refine: int) -> torch.Tensor:
-    """Run requests of one tier straight through: noise [B, L, 4] and
-    prompt embeddings ctx [B, ctx_len, ctx_dim] -> final latents [B, L, 4]."""
+    """Run requests of one tier straight through: noise [B, L, 4] and the
+    conditioning by name (``ctx`` [B, ctx_len, ctx_dim]) -> final latents
+    [B, L, 4]."""
     steps = sampler["steps"]
     ab = alphas_cumprod(sampler, noise.device)
     ts = timesteps(sampler, steps)
     branches = pas_branches(tier_plan(tier, steps), steps)
     n_up = n_up_steps(cfg)
     e_sk, e_rf = n_up - l_sketch, n_up - l_refine
-    ctx2 = torch.cat([ctx, torch.zeros_like(ctx)], dim=0)
+    cond2 = with_unconditional(cond)
     g = sampler["guidance_scale"]
     x, ring, feats = noise, [], {}
     for i, (t, br) in enumerate(zip(ts, branches)):
@@ -336,10 +475,10 @@ def sample(cfg: dict, sampler: dict, p: Params, noise, ctx, tier: str, *, l_sket
         x2 = torch.cat([x, x], dim=0)
         tt = torch.full((x2.shape[0],), t, device=x.device, dtype=torch.int64)
         if br == FULL:
-            eps2, feats = unet(cfg, p, x2, tt, ctx2, capture=(e_sk, e_rf))
+            eps2, feats = unet(cfg, p, x2, tt, cond2, capture=(e_sk, e_rf))
         else:
             entry = e_sk if br == SKETCH else e_rf
-            eps2, _ = unet(cfg, p, x2, tt, ctx2, entry=entry, feat=feats[entry])
+            eps2, _ = unet(cfg, p, x2, tt, cond2, entry=entry, feat=feats[entry])
         e_c, e_u = eps2.chunk(2, dim=0)
         ring = [e_u + g * (e_c - e_u)] + ring[:3]
         eps = plms_eps(ring)

@@ -99,7 +99,8 @@ def main(argv=None) -> int:
         value = spec.reader(m.name)(record)
         if value is not None:
             metrics[m.name] = {"value": value, "unit": m.unit}
-    verdict = check.check(cell, record, Traffic(cell.mix, cell.config, args.seed), "cuda")
+    traffic = Traffic(cell.mix, cell.config, args.seed, cell.model)
+    verdict = check.check(cell, record, traffic, "cuda")
     attempted, failed = outcome(record)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
               "memory_peak_bytes": int(record["mem_peak"])}

@@ -19,7 +19,6 @@ import types
 from typing import Any
 
 from bench import flops
-from bench.reference import sd
 from bench.reference.weights import make_weights
 from bench.traffic import Traffic
 
@@ -98,7 +97,7 @@ class Window:
             self.traced.set()
 
 
-def warm_requests(P, policy, cfg: dict, n: int) -> list:
+def warm_requests(P, policy, cfg: dict, n: int, model) -> list:
     """``n`` short balanced requests whose plans run FULL, SKETCH and REFINE
     micro-steps with every lane busy, then decode: every shape the window
     uses, once."""
@@ -108,13 +107,13 @@ def warm_requests(P, policy, cfg: dict, n: int) -> list:
     import numpy as np
 
     rng = np.random.default_rng(0)
-    return [
-        P.engine.GenRequest(
-            rid=-1 - i, ctx=(rng.normal(size=(u["ctx_len"], u["ctx_dim"])) * 0.2).astype(np.float32),
-            noise=rng.normal(size=(L, u["in_channels"])).astype(np.float32),
-            timesteps=6, plan=pol.plan, policy=pol)
-        for i in range(n)
-    ]
+    reqs = []
+    for i in range(n):
+        cond = model.conditioning(u, rng)
+        reqs.append(P.engine.GenRequest(
+            rid=-1 - i, **cond, noise=rng.normal(size=(L, u["in_channels"])).astype(np.float32),
+            timesteps=6, plan=pol.plan, policy=pol))
+    return reqs
 
 
 def check_config(P, cfg: dict):
@@ -141,17 +140,17 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, device: str = "cud
 
     t_start = time.perf_counter() if t_start is None else t_start
     P = program_modules()
-    cfg, mix, e = cell.config, cell.mix, cell.config["engine"]
+    cfg, mix, e, model = cell.config, cell.mix, cell.config["engine"], cell.model
     ucfg, dcfg = check_config(P, cfg)
-    traffic = Traffic(mix, cfg, seed)
+    traffic = Traffic(mix, cfg, seed, model)
     tracer = None
     if trace:
         from bench import trace as T
 
         T.install(P)
         tracer = T.Tracer()
-    class_flops = flops.class_flops(cfg["unet"], e["l_sketch"], e["l_refine"])
-    unet_w, vae_w = make_weights(cfg["unet"], seed, device)
+    class_flops = flops.class_flops(cfg["unet"], e["l_sketch"], e["l_refine"], model)
+    unet_w, vae_w = make_weights(cfg["unet"], seed, device, model)
     config = P.engine.EngineConfig(
         n_lanes=e["n_lanes"], max_steps=cfg["sampler"]["steps"], l_sketch=e["l_sketch"],
         l_refine=e["l_refine"], decode_images=True, cache_mode=e["cache_mode"],
@@ -159,7 +158,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, device: str = "cud
         window=e["window"], max_inflight=e["max_inflight"])
     bundle = P.config.build_engine(config, models=(ucfg, dcfg, unet_w, vae_w))
     engine, policy = bundle.engine, bundle.policy
-    engine.run(warm_requests(P, policy, cfg, e["n_lanes"]))
+    engine.run(warm_requests(P, policy, cfg, e["n_lanes"], model))
     t_warm = time.perf_counter()
 
     window = Window(engine, tracer, trace_past_close=traffic.open_loop)
@@ -195,7 +194,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, device: str = "cud
         pol = policy.resolve(r.steps, quality=r.tier)
         log = ReqLog(r.tier, r.steps, due=traffic.due_s(i) + t_traffic if traffic.open_loop else None)
         logs[i] = log
-        req = P.engine.GenRequest(rid=i, ctx=r.ctx, noise=r.noise, timesteps=r.steps,
+        req = P.engine.GenRequest(rid=i, **r.cond, noise=r.noise, timesteps=r.steps,
                                   plan=pol.plan, policy=pol)
         log.submitted = time.perf_counter()
         try:
@@ -288,7 +287,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, *, device: str = "cud
         drain_s=float(mix["window"].get("drain_s", 0.0)),
         requests={i: dataclasses.asdict(log) for i, log in logs.items()},
         step_events=step_events, counters=window.counters, class_flops=class_flops,
-        branches={t: sd.pas_branches(sd.tier_plan(t, traffic.steps), traffic.steps)
+        branches={t: model.pas_branches(model.tier_plan(t, traffic.steps), traffic.steps)
                   for t in set(log.tier for log in logs.values())},
         mem_peak=window.mem_peak, trace=trace_summary, outputs=outputs,
     )

@@ -6,10 +6,15 @@ its name.
 * traffic mix ``<t>``: ``bench/mixes/<t>.json``;
 * metric ``<m>``: ``bench/metrics/<m>.py``, a module with ``read(run) ->
   float | None`` (None: nothing to read in this run);
-* the limits of a cell's output check: ``bench/limits/<cell>.json``.
+* the limits of a cell's output check: ``bench/limits/<cell>.json``;
+* model ``<m>``: ``bench/reference/<m>.py``, the plain reference of the
+  configurations whose file names it under ``"model"`` (``"sd"`` where
+  the key is absent), loaded by file path.  Its contract is in the
+  docstring of ``bench/reference/sd.py``: weight layouts, conditioning,
+  U-Net, sampler, VAE decode, PAS plans and precision.
 
-Adding a cell, a configuration, a mix or a metric adds files and entries;
-no file here changes.
+Adding a cell, a configuration, a model, a mix or a metric adds files and
+entries; no file here changes.
 """
 from __future__ import annotations
 
@@ -17,10 +22,13 @@ import dataclasses
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Callable
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
+#: the model of a configuration whose file names none
+DEFAULT_MODEL = "sd"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +53,7 @@ class Cell:
     limits: dict
     end_to_end: tuple[Metric, ...]
     per_layer: tuple[Metric, ...]
+    model: ModuleType  # the configuration's model module
 
 
 def _json(path: Path) -> dict:
@@ -77,13 +86,29 @@ def load_cell(name: str, root: Path = ROOT, bench: Path = BENCH) -> Cell:
     reported = {m.name for m in e2e}
     layer = [m for m in _metrics(spec["per_layer"], False)
              if (name in m.workloads if m.workloads is not None else m.moves in reported)]
+    config = _json(bench / "configs" / f"{w['config']}.json")
     return Cell(
         name=name, config_name=w["config"], traffic=w["traffic"], chips=int(w["chips"]),
-        config=_json(bench / "configs" / f"{w['config']}.json"),
-        mix=_json(bench / "mixes" / f"{w['traffic']}.json"),
+        config=config, mix=_json(bench / "mixes" / f"{w['traffic']}.json"),
         limits=_json(bench / "limits" / f"{name}.json"),
         end_to_end=tuple(e2e), per_layer=tuple(layer),
+        model=load_model(config.get("model", DEFAULT_MODEL), bench),
     )
+
+
+def _load(path: Path, module_name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_model(model: str, bench: Path = BENCH) -> ModuleType:
+    """The model module ``bench/reference/<model>.py``."""
+    path = bench / "reference" / f"{model}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no model module {model!r}: {path} is missing")
+    return _load(path, "bench_model_" + model.replace(".", "_").replace("-", "_"))
 
 
 def reader(metric: str, bench: Path = BENCH) -> Callable[[dict], Any]:
@@ -91,8 +116,4 @@ def reader(metric: str, bench: Path = BENCH) -> Callable[[dict], Any]:
     path = bench / "metrics" / f"{metric}.py"
     if not path.is_file():
         raise FileNotFoundError(f"no reader for metric {metric!r}: {path}")
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + metric.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, "bench_metric_" + metric.replace(".", "_").replace("-", "_")).read

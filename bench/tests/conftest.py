@@ -42,11 +42,14 @@ TOY_OPEN_LOOP = {"name": "toy.tiers.p80", "traffic": "tiers.p80", "from": "tiers
 def write_toy_root(root: Path) -> Path:
     """A benchmark root at ``root`` whose cells are the real ones' mixes
     and limits over the toy configuration (steps 8, 2 lanes), plus an
-    open-loop cell."""
+    open-loop cell; its metric readers and model modules are copies of
+    the real ones."""
     bench = root / "bench"
     for d in ("configs", "mixes", "limits"):
         (bench / d).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(ROOT / "bench" / "metrics", bench / "metrics", dirs_exist_ok=True)
+    for d in ("metrics", "reference"):
+        shutil.copytree(ROOT / "bench" / d, bench / d, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     cfg = json.loads((ROOT / "bench" / "configs" / "sd_v14.json").read_text())
     cfg.update(name="sd_toy", unet=TOY_UNET)
     cfg["sampler"]["steps"] = 8

@@ -36,7 +36,7 @@ def test_control_fails_and_program_passes(card, cell):
     c = spec.load_cell(cell)
     seed = 20_260_001
     record = serve.run_cell(c, seed, WINDOW_S, False)
-    r = control_readings(c, record, Traffic(c.mix, c.config, seed), "cuda")
+    r = control_readings(c, record, Traffic(c.mix, c.config, seed, c.model), "cuda")
     print(json.dumps(dict(cell=cell, seed=seed, **r)))
     assert len(r["checked"]) == c.mix["check"]["sample"], r
     assert r["program_correct"], r

@@ -28,7 +28,7 @@ CARD_WINDOW_S = 20.0
 def _run(root, cell="toy.tiers.backlog"):
     c = spec.load_cell(cell, root, root / "bench")
     record = serve.run_cell(c, SEED, WINDOW_S, False, device="cpu", backend="eager")
-    return check.check(c, record, Traffic(c.mix, c.config, SEED), "cpu")
+    return check.check(c, record, Traffic(c.mix, c.config, SEED, c.model), "cpu")
 
 
 def _patch_step(monkeypatch, keep):
@@ -93,7 +93,7 @@ def test_fault_at_the_cells_size_on_the_card(monkeypatch, fault):
     _patch_step(monkeypatch, FAULTS[fault])
     c = spec.load_cell(CARD_CELL)
     record = serve.run_cell(c, SEED, CARD_WINDOW_S, False)
-    v = check.check(c, record, Traffic(c.mix, c.config, SEED), "cuda")
+    v = check.check(c, record, Traffic(c.mix, c.config, SEED, c.model), "cuda")
     print(json.dumps(dict(cell=CARD_CELL, fault=fault, checked=v["checked"],
                           numbers={k: r["value"] for k, r in v["numbers"].items()})))
     assert v["checked"] and not v["correct"], v["numbers"]

@@ -15,7 +15,7 @@ import torch
 
 from bench import flops
 from bench.reference import sd
-from bench.reference.weights import _Spec, _unet_layout, count, make_weights
+from bench.reference.weights import _Spec, count, make_weights
 from bench.tests.conftest import ROOT, TOY_UNET
 
 #: operations of one CFG pair (batch 2) by class, and of one decode: the
@@ -37,7 +37,7 @@ def _cfg(name):
 @pytest.mark.parametrize("name", ["sd_v14"])
 def test_class_flops(name):
     cfg = _cfg(name)
-    assert flops.class_flops(cfg["unet"], 3, 2) == EXPECTED[name]
+    assert flops.class_flops(cfg["unet"], 3, 2, sd) == EXPECTED[name]
 
 
 @pytest.mark.parametrize("name", ["sd_v14"])
@@ -69,7 +69,7 @@ def test_weights_have_the_port_tree(name):
 
     cfg = _cfg(name)
     s = _Spec()
-    mine = _unet_layout(s, cfg["unet"])
+    mine = sd.unet_layout(s, cfg["unet"])
     for holder, key, shape, _, _ in s.leaves:
         holder[key] = torch.empty(shape, device="meta")
     port = U.init_unet(get_unet_config(name), U._Shapes())
@@ -83,16 +83,16 @@ def test_weights_have_the_port_tree(name):
 
     assert shapes(mine) == shapes(port)
     assert count(mine) == cfg["unet_parameters"]
-    _, vae = make_weights(TOY_UNET, 0, "cpu")
+    _, vae = make_weights(TOY_UNET, 0, "cpu", sd)
     port_vae = V.init_vae(torch.Generator().manual_seed(0))
     assert shapes(vae) == shapes(port_vae)
 
 
 def test_weights_repeat_per_seed_and_are_bf16_values():
     cfg = dict(TOY_UNET, dtype="bfloat16")
-    a, _ = make_weights(cfg, 2**31 + 3, "cpu")
-    b, _ = make_weights(cfg, 2**31 + 3, "cpu")
-    c, _ = make_weights(cfg, 4, "cpu")
+    a, _ = make_weights(cfg, 2**31 + 3, "cpu", sd)
+    b, _ = make_weights(cfg, 2**31 + 3, "cpu", sd)
+    c, _ = make_weights(cfg, 4, "cpu", sd)
     w = a["down"][0]["res"]["conv1"]["w"]
     assert torch.equal(w, b["down"][0]["res"]["conv1"]["w"])
     assert not torch.equal(w, c["down"][0]["res"]["conv1"]["w"])
@@ -103,7 +103,7 @@ def test_weights_repeat_per_seed_and_are_bf16_values():
 def test_biases_and_norm_affines_are_drawn():
     """No bias is zero and no norm is the identity, so a kernel that drops
     or misplaces one changes the output."""
-    unet, vae = make_weights(TOY_UNET, 9, "cpu")
+    unet, vae = make_weights(TOY_UNET, 9, "cpu", sd)
     res = unet["down"][0]["res"]
     for leaf in (res["conv1"]["b"], res["t_proj"]["b"], unet["time_mlp"]["b1"],
                  res["gn1"]["bias"], unet["down"][0]["tf"][0]["ln1"]["bias"], vae["dec_gn"]["bias"]):
@@ -122,7 +122,7 @@ def served_toy():
     from repro_torch.serving.config import build_engine
     from repro_torch.serving.engine import EngineConfig, GenRequest
 
-    unet_w, vae_w = make_weights(TOY_UNET, 11, "cpu")
+    unet_w, vae_w = make_weights(TOY_UNET, 11, "cpu", sd)
     ucfg = get_unet_config("sd_toy")
     dcfg = DiffusionConfig(timesteps_sample=8, scheduler="pndm", guidance_scale=7.5)
     config = EngineConfig(n_lanes=2, max_steps=8, l_sketch=3, l_refine=2, device="cpu",
@@ -145,12 +145,12 @@ def test_reference_matches_the_served_engine_at_sd_toy(served_toy, tier):
     reqs, done = served_toy
     rid = next(i for i, r in reqs.items() if r[0] == tier)
     _, ctx, noise, _ = reqs[rid]
-    unet_w, vae_w = make_weights(TOY_UNET, 11, "cpu")
+    unet_w, vae_w = make_weights(TOY_UNET, 11, "cpu", sd)
     sampler = json.loads((ROOT / "bench" / "configs" / "sd_v14.json").read_text())["sampler"]
     sampler = dict(sampler, steps=8)
     with torch.no_grad(), sd.precision("fp32", torch.device("cpu")):
         lat = sd.sample(TOY_UNET, sampler, unet_w, torch.from_numpy(noise)[None],
-                        torch.from_numpy(ctx)[None], tier, l_sketch=3, l_refine=2)
+                        {"ctx": torch.from_numpy(ctx)[None]}, tier, l_sketch=3, l_refine=2)
         img = sd.vae_decode(vae_w, lat, (16, 16))
     served = done[rid]
     scale = float(lat.abs().max())

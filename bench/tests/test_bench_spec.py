@@ -32,6 +32,7 @@ def test_cell_loads_by_name(cell):
     c = spec.load_cell(cell)
     assert c.chips == 1
     assert c.config["name"] == c.config_name
+    assert c.model.__name__ == "bench_model_" + c.config.get("model", spec.DEFAULT_MODEL)
     assert set(c.limits) == {"latent_err", "image_err"}
     assert 0 < min(c.limits.values()) and max(c.limits.values()) < 1
     e2e = {m.name for m in c.end_to_end}

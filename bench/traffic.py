@@ -25,8 +25,11 @@ A mix file (``bench/mixes/<name>.json``) sets:
   packing, and so the work, depends on the order of the plans: a cell
   measures one fixed order.
 
-Each request's prompt embedding [ctx_len, ctx_dim] (normal, scale 0.2) and
-initial noise [L, C] are drawn from (seed, index) alone.
+Each request's conditioning and initial noise [L, C] are drawn from
+(seed, index) alone, the conditioning first: the configuration's model
+module (``bench/reference/<model>.py``) draws its named arrays with
+``conditioning(cfg, rng)``.  For the model ``sd`` that is the prompt
+embedding ``ctx`` [ctx_len, ctx_dim], normal with scale 0.2.
 """
 from __future__ import annotations
 
@@ -46,12 +49,16 @@ class Request:
     index: int
     tier: str
     steps: int
-    ctx: np.ndarray
+    cond: dict[str, np.ndarray]  # the program's GenRequest takes each by its name
     noise: np.ndarray
 
 
 class Traffic:
-    def __init__(self, mix: dict, cfg: dict, seed: int):
+    """Requests of ``mix`` for configuration ``cfg`` from ``seed``;
+    ``model``: the configuration's model module, which draws the
+    conditioning."""
+
+    def __init__(self, mix: dict, cfg: dict, seed: int, model):
         if mix["task"] != "txt2img":
             raise ValueError(f"unsupported task {mix['task']!r}")
         unknown = set(mix["tiers"]) - set(TIERS)
@@ -59,7 +66,7 @@ class Traffic:
             raise ValueError(f"unknown tiers {sorted(unknown)}")
         if "order_seed" not in mix:
             raise ValueError("a mix needs order_seed: the order of its plans sets the work")
-        self.mix, self.cfg, self.seed = mix, cfg, _seed(seed)
+        self.mix, self.cfg, self.seed, self.model = mix, cfg, _seed(seed), model
         self.order = _seed(mix["order_seed"])
         self.steps = int(mix["steps"])
         self.arrivals = mix["arrivals"]
@@ -83,9 +90,9 @@ class Traffic:
     def request(self, i: int) -> Request:
         cfg = self.cfg["unet"]
         rng = np.random.default_rng((self.seed, 2, i))
-        ctx = (rng.normal(size=(cfg["ctx_len"], cfg["ctx_dim"])) * 0.2).astype(np.float32)
+        cond = self.model.conditioning(cfg, rng)
         noise = rng.normal(size=(cfg["latent_size"] ** 2, cfg["in_channels"])).astype(np.float32)
-        return Request(i, self.tier(i), self.steps, ctx, noise)
+        return Request(i, self.tier(i), self.steps, cond, noise)
 
     def due_s(self, i: int) -> float:
         """Open loop: request i's due time, seconds after traffic starts."""
