@@ -206,6 +206,20 @@ class UNetConfig:
     #: storage type of the weights; activations are always float32, and
     #: "bfloat16" weights are held as float32 tensors of bf16-rounded values
     dtype: str = "float32"
+    #: transformer blocks a level (the mid block takes the last level's);
+    #: where set, each attention site is one stack of that depth (one group
+    #: norm, proj_in, the blocks, proj_out, one residual), and ``tf_depth``
+    #: is unused; None: ``tf_depth`` whole sites, each with its own residual
+    tf_depths: Optional[Tuple[int, ...]] = None
+    #: width of every head where set (heads = channels // head_dim at each
+    #: level); None: ``n_heads`` heads at every level
+    head_dim: Optional[int] = None
+    #: SDXL's "text_time" conditioning: a pooled prompt vector and time ids
+    #: (each through a ``time_id_dim`` sinusoid), through a two-layer MLP
+    #: added to the time embedding; 0 = none
+    pooled_dim: int = 0
+    n_time_ids: int = 0
+    time_id_dim: int = 0
 
     @property
     def n_levels(self) -> int:
@@ -215,6 +229,32 @@ class UNetConfig:
     def n_skip_blocks(self) -> int:
         """Number of paper-indexed down/up block pairs (Fig. 3: 12 for SD)."""
         return 1 + self.n_levels * self.n_res_blocks + (self.n_levels - 1)
+
+
+# Helpers over a U-Net config's SDXL fields, as free functions so that a
+# config that lacks those fields (the JAX package's ``UNetConfig``) reads as
+# one that leaves them at their defaults.
+
+
+def added_cond_dim(cfg) -> int:
+    """Input width of the added-conditioning MLP (0: none)."""
+    return getattr(cfg, "pooled_dim", 0) + getattr(cfg, "n_time_ids", 0) * getattr(
+        cfg, "time_id_dim", 0)
+
+
+def heads_at(cfg, channels: int) -> int:
+    """Attention heads at a level of ``channels`` channels."""
+    head_dim = getattr(cfg, "head_dim", None)
+    return channels // head_dim if head_dim else cfg.n_heads
+
+
+def site_depths(cfg, level: int | None) -> Tuple[int, ...]:
+    """Depth of each attention site's stack at ``level`` (None: the mid
+    block): ``tf_depth`` sites of 1 block, or one stack."""
+    depths = getattr(cfg, "tf_depths", None)
+    if depths is None:
+        return (1,) * cfg.tf_depth
+    return (depths[-1 if level is None else level],)
 
 
 @dataclasses.dataclass(frozen=True)

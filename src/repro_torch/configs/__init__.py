@@ -42,6 +42,7 @@ UNET_CONFIGS = {
     "sd_v14": stablediff.SD_V14,
     "sd_v21": stablediff.SD_V21,
     "sd_xl": stablediff.SD_XL,
+    "sdxl_base": stablediff.SDXL_BASE,
     "sd_100m": stablediff.SD_100M,
     "sd_toy": stablediff.TOY,
 }

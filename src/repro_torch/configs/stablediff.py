@@ -4,6 +4,9 @@ Same values as ``repro/configs/stablediff.py``:
 
 * sd_v14 / sd_v21: latent 64x64 (512x512 images), 860M-class U-Net;
 * sd_xl: latent 128x128, 3 levels, tf_depth=2 (structural approximation);
+* sdxl_base: Stable Diffusion XL base 1.0 at its published widths (the
+  port's own; the JAX package has none): transformer stacks of depth
+  1 / 2 / 10 by level, 64-wide heads and the "text_time" conditioning;
 * sd_100m: the ~100M member used by the training example;
 * TOY: the CPU-sized member the parity tests run.
 """
@@ -51,6 +54,32 @@ SD_XL = UNetConfig(
     ctx_len=77,
     time_dim=1280,
     latent_size=128,
+    dtype="bfloat16",
+)
+
+#: stabilityai/stable-diffusion-xl-base-1.0 ``unet/config.json``: no
+#: attention at level 0, stacks of 2 and 10 blocks at levels 1 and 2 (and
+#: 10 in the mid block), 10 and 20 heads of 64, context 2048 x 77, a pooled
+#: text vector of 1280 and 6 time ids through 256-wide sinusoids (2816 into
+#: the MLP); 2,567,463,684 parameters published, 915,200 fewer here (no
+#: bias on the attention out-projections and the feed-forward)
+SDXL_BASE = UNetConfig(
+    name="sdxl_base",
+    base_channels=320,
+    channel_mult=(1, 2, 4),
+    n_res_blocks=2,
+    attn_levels=(1, 2),
+    n_heads=10,  # unused: head_dim sets the heads by level
+    tf_depth=1,  # unused: tf_depths sets the depths
+    tf_depths=(1, 2, 10),
+    head_dim=64,
+    ctx_dim=2048,
+    ctx_len=77,
+    time_dim=1280,
+    latent_size=128,
+    pooled_dim=1280,
+    n_time_ids=6,
+    time_id_dim=256,
     dtype="bfloat16",
 )
 

@@ -54,8 +54,11 @@ def cfg_unet_step(
     entry_feat: torch.Tensor | None = None,  # [2B, ...] cached main-branch feature
     capture: tuple[int, ...] = (),
     backend=None,
+    pooled2: torch.Tensor | None = None,  # [2B, pooled_dim] = [cond; uncond]
+    time_ids2: torch.Tensor | None = None,  # [2B, n_time_ids]
 ) -> tuple[torch.Tensor, dict[int, torch.Tensor]]:
-    """One classifier-free-guided U-Net call on the CFG-doubled batch.
+    """One classifier-free-guided U-Net call on the CFG-doubled batch (with
+    the added conditioning's rows where the U-Net takes it).
 
     Returns the guided eps [B, L, C] and the captured main-branch features in
     the [2B, ...] cond/uncond-stacked layout.
@@ -67,6 +70,7 @@ def cfg_unet_step(
     eps2, cap = U.unet_apply(
         ucfg, params, x2, t2, ctx2,
         entry_step=entry_step, entry_feat=entry_feat, capture_steps=capture, backend=backend,
+        pooled=pooled2, time_ids=time_ids2,
     )
     e_c, e_u = torch.chunk(eps2, 2, dim=0)
     return e_u + guidance * (e_c - e_u), cap

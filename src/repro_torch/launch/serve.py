@@ -78,7 +78,8 @@ from repro_torch.launch.steps import (
 from repro_torch.models import unet as U
 from repro_torch.serving import config as CFG
 from repro_torch.serving.driver import EngineDriver
-from repro_torch.serving.engine import GenRequest, serve_static, torch_device
+from repro_torch.serving.engine import (
+    GenRequest, added_conditioning, serve_static, torch_device)
 from repro_torch.serving.frontend import HTTPFrontend, RequestFactory
 from repro_torch.serving.policy import QualityPolicy, default_pas_plan
 
@@ -218,6 +219,7 @@ def make_diffusion_requests(args, ucfg, policy: QualityPolicy | None = None) -> 
                 timesteps=args.timesteps,
                 plan=plan,
                 policy=pol,
+                **added_conditioning(ucfg, rng),
             )
         )
     return reqs

@@ -20,7 +20,7 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.common import trace as T
-from repro_torch.common.types import UNetConfig
+from repro_torch.common.types import UNetConfig, added_cond_dim, heads_at, site_depths
 from repro_torch.kernels.flash_attention.ops import mha as _mha  # noqa: F401 (counterpart name)
 from repro_torch.kernels.stream_norm.ops import group_norm  # noqa: F401 (counterpart name)
 from repro_torch.kernels.uniconv.ops import uniconv_apply  # noqa: F401 (counterpart name)
@@ -116,13 +116,16 @@ def apply_res(p: Params, x, temb, hw, groups: int, backend=None) -> torch.Tensor
     return x + h
 
 
-def init_tf(gen, c: int, ctx_dim: int, dtype: str) -> Params:
+def init_tf(gen, c: int, ctx_dim: int, dtype: str, *, first: bool = True,
+            last: bool = True) -> Params:
+    """One transformer block; the first block of a stack also holds the
+    stack's group norm and ``proj_in``, the last its ``proj_out`` (a block
+    that is both is a whole site, the depth-1 tree)."""
     def ln():
         return {"scale": torch.ones((c,), device=gen.device), "bias": _zeros(gen, c)}
 
-    return {
-        "gn": init_gn(gen, c),
-        "proj_in": init_conv(gen, 1, c, c, dtype),
+    p = {"gn": init_gn(gen, c), "proj_in": init_conv(gen, 1, c, c, dtype)} if first else {}
+    p.update({
         "ln1": ln(),
         "self_q": _dense_init(gen, (c, c), dtype),
         "self_k": _dense_init(gen, (c, c), dtype),
@@ -136,31 +139,67 @@ def init_tf(gen, c: int, ctx_dim: int, dtype: str) -> Params:
         "ln3": ln(),
         "ff_in": _dense_init(gen, (c, 8 * c), dtype),  # GEGLU: 2 * 4c
         "ff_out": _dense_init(gen, (4 * c, c), dtype),
-        "proj_out": init_conv(gen, 1, c, c, dtype),
-    }
+    })
+    if last:
+        p["proj_out"] = init_conv(gen, 1, c, c, dtype)
+    return p
 
 
-def apply_tf(p: Params, x, ctx, hw, n_heads: int, groups: int, backend=None) -> torch.Tensor:
+def init_sites(gen, cfg: UNetConfig, c: int, level: int | None) -> list[Params]:
+    """The transformer blocks of one attention entry at ``level`` (None:
+    the mid block), site after site (:func:`~repro_torch.common.types.site_depths`)."""
+    return [
+        init_tf(gen, c, cfg.ctx_dim, cfg.dtype, first=i == 0, last=i == d - 1)
+        for d in site_depths(cfg, level) for i in range(d)
+    ]
+
+
+def apply_tf_stack(blocks: Sequence[Params], x, ctx, hw, n_heads: int, groups: int,
+                   backend=None) -> torch.Tensor:
+    """One attention site: group norm and ``proj_in`` (the first block's),
+    the blocks, ``proj_out`` (the last block's), one residual.  The blocks
+    run inline, so each activation is freed as soon as ``h`` is rebound."""
     bk = resolve_backend(backend)
-    res0 = x
-    h = bk.group_norm(x, p["gn"], groups)
-    h = bk.conv(p["proj_in"]["w"], p["proj_in"]["b"], h, hw, 1)
+    h = bk.group_norm(x, blocks[0]["gn"], groups)
+    h = bk.conv(blocks[0]["proj_in"]["w"], blocks[0]["proj_in"]["b"], h, hw, 1)
+    for p in blocks:
+        z = layer_norm(h, p["ln1"])
+        h = h + bk.attention(
+            *_dense((z, p["self_q"]), (z, p["self_k"]), (z, p["self_v"])), p["self_o"], n_heads
+        )
+        z = layer_norm(h, p["ln2"])
+        h = h + bk.attention(
+            *_dense((z, p["cross_q"]), (ctx, p["cross_k"]), (ctx, p["cross_v"])), p["cross_o"],
+            n_heads,
+        )
+        z = layer_norm(h, p["ln3"])
+        gate, val = torch.chunk(_dense((z, p["ff_in"]))[0], 2, dim=-1)
+        # paper's sigmoid GELU
+        h = h + _dense((gate * torch.sigmoid(1.702 * gate) * val, p["ff_out"]))[0]
+    h = bk.conv(blocks[-1]["proj_out"]["w"], blocks[-1]["proj_out"]["b"], h, hw, 1)
+    return h + x
 
-    z = layer_norm(h, p["ln1"])
-    h = h + bk.attention(
-        *_dense((z, p["self_q"]), (z, p["self_k"]), (z, p["self_v"])), p["self_o"], n_heads
-    )
-    z = layer_norm(h, p["ln2"])
-    h = h + bk.attention(
-        *_dense((z, p["cross_q"]), (ctx, p["cross_k"]), (ctx, p["cross_v"])), p["cross_o"], n_heads
-    )
-    z = layer_norm(h, p["ln3"])
-    gate, val = torch.chunk(_dense((z, p["ff_in"]))[0], 2, dim=-1)
-    # paper's sigmoid GELU
-    h = h + _dense((gate * torch.sigmoid(1.702 * gate) * val, p["ff_out"]))[0]
 
-    h = bk.conv(p["proj_out"]["w"], p["proj_out"]["b"], h, hw, 1)
-    return h + res0
+def apply_sites(cfg: UNetConfig, blocks: list[Params], h, ctx, hw, level: int | None,
+                backend=None) -> torch.Tensor:
+    """Every attention site of one entry at ``level`` (None: the mid block)."""
+    n_heads = heads_at(cfg, h.shape[-1])
+    at = 0
+    for d in site_depths(cfg, level):
+        h = apply_tf_stack(blocks[at:at + d], h, ctx, hw, n_heads, cfg.groups, backend=backend)
+        at += d
+    return h
+
+
+def add_embedding(cfg: UNetConfig, p: Params, pooled: torch.Tensor,
+                  time_ids: torch.Tensor) -> torch.Tensor:
+    """SDXL's "text_time" embedding: the MLP over [pooled; sinusoid of each
+    time id], [B, time_dim], added to the time embedding."""
+    b = pooled.shape[0]
+    tid = timestep_embedding(time_ids.reshape(-1), cfg.time_id_dim).reshape(b, -1)
+    z = torch.cat([pooled.float(), tid], dim=-1)
+    z = _dense((z, p["w1"], p["b1"]))[0]
+    return _dense((_silu(z), p["w2"], p["b2"]))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -185,20 +224,29 @@ def init_unet(cfg: UNetConfig, generator: torch.Generator) -> Params:
             "w2": _dense_init(gen, (tdim, tdim), dtype),
             "b2": _zeros(gen, tdim),
         },
+    }
+    if added_cond_dim(cfg):
+        params["add_embedding"] = {
+            "w1": _dense_init(gen, (added_cond_dim(cfg), tdim), dtype),
+            "b1": _zeros(gen, tdim),
+            "w2": _dense_init(gen, (tdim, tdim), dtype),
+            "b2": _zeros(gen, tdim),
+        }
+    params.update({
         "conv_in": init_conv(gen, 3, cfg.in_channels, cfg.base_channels, dtype),
         "down": [],
         "mid": {},
         "up": [],
         "gn_out": init_gn(gen, cfg.base_channels),
         "conv_out": init_conv(gen, 3, cfg.base_channels, cfg.out_channels, dtype),
-    }
+    })
 
     ch = cfg.base_channels
     for lvl, cout in enumerate(chans):
         for _ in range(cfg.n_res_blocks):
             blk = {"res": init_res(gen, ch, cout, tdim, dtype)}
             if lvl in cfg.attn_levels:
-                blk["tf"] = [init_tf(gen, cout, cfg.ctx_dim, dtype) for _ in range(cfg.tf_depth)]
+                blk["tf"] = init_sites(gen, cfg, cout, lvl)
             params["down"].append(blk)
             ch = cout
         if lvl != cfg.n_levels - 1:
@@ -206,7 +254,7 @@ def init_unet(cfg: UNetConfig, generator: torch.Generator) -> Params:
 
     params["mid"] = {
         "res1": init_res(gen, ch, ch, tdim, dtype),
-        "tf": [init_tf(gen, ch, cfg.ctx_dim, dtype) for _ in range(cfg.tf_depth)],
+        "tf": init_sites(gen, cfg, ch, None),
         "res2": init_res(gen, ch, ch, tdim, dtype),
     }
 
@@ -222,7 +270,7 @@ def init_unet(cfg: UNetConfig, generator: torch.Generator) -> Params:
         for i in range(cfg.n_res_blocks + 1):
             blk = {"res": init_res(gen, ch_up + skip_ch.pop(), cout, tdim, dtype)}
             if lvl in cfg.attn_levels:
-                blk["tf"] = [init_tf(gen, cout, cfg.ctx_dim, dtype) for _ in range(cfg.tf_depth)]
+                blk["tf"] = init_sites(gen, cfg, cout, lvl)
             if i == cfg.n_res_blocks and lvl != 0:
                 blk["upsample"] = init_conv(gen, 3, cout, cout, dtype)
             params["up"].append(blk)
@@ -297,6 +345,8 @@ def unet_apply(
     entry_feat: torch.Tensor | None = None,  # cached main-branch feature
     capture_steps: Sequence[int] = (),
     backend=None,  # KernelBackend instance or name; None = "eager"
+    pooled: torch.Tensor | None = None,  # [B, pooled_dim] where the config takes it
+    time_ids: torch.Tensor | None = None,  # [B, n_time_ids] where the config takes them
 ) -> tuple[torch.Tensor, dict[int, torch.Tensor]]:
     """Full or partial U-Net forward -> (eps, {captured step -> feature})."""
     bk = resolve_backend(backend)
@@ -308,6 +358,10 @@ def unet_apply(
     tm = params["time_mlp"]
     temb = _dense((temb, tm["w1"], tm["b1"]))[0]
     temb = _dense((_silu(temb), tm["w2"], tm["b2"]))[0]
+    if added_cond_dim(cfg):
+        if pooled is None or time_ids is None:
+            raise ValueError(f"{cfg.name} needs the pooled vector and the time ids")
+        temb = temb + add_embedding(cfg, params["add_embedding"], pooled, time_ids)
 
     up_plan = _up_plan(cfg)
     n_up = len(up_plan)
@@ -325,8 +379,7 @@ def unet_apply(
         else:
             h = apply_res(entry["res"], h, temb, hw, groups, backend=bk)
             if has_attn:
-                for tfp in entry["tf"]:
-                    h = apply_tf(tfp, h, ctx, hw, cfg.n_heads, groups, backend=bk)
+                h = apply_sites(cfg, entry["tf"], h, ctx, hw, lvl, backend=bk)
         skips.append(h)
         hws.append(hw)
 
@@ -334,8 +387,7 @@ def unet_apply(
     if entry_step == 0:
         m = params["mid"]
         h = apply_res(m["res1"], h, temb, hw, groups, backend=bk)
-        for tfp in m["tf"]:
-            h = apply_tf(tfp, h, ctx, hw, cfg.n_heads, groups, backend=bk)
+        h = apply_sites(cfg, m["tf"], h, ctx, hw, None, backend=bk)
         h = apply_res(m["res2"], h, temb, hw, groups, backend=bk)
     else:
         if entry_feat is None:
@@ -353,8 +405,7 @@ def unet_apply(
         h = apply_res(entry["res"], h, temb, hw, groups, backend=bk)
         lvl, has_attn, up_after = up_plan[step]
         if has_attn:
-            for tfp in entry["tf"]:
-                h = apply_tf(tfp, h, ctx, hw, cfg.n_heads, groups, backend=bk)
+            h = apply_sites(cfg, entry["tf"], h, ctx, hw, lvl, backend=bk)
         if up_after:
             h, hw = _upsample2x(h, hw)
             h = bk.conv(entry["upsample"]["w"], entry["upsample"]["b"], h, hw, 3)

@@ -38,7 +38,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from repro_torch.common.types import UNetConfig
+from repro_torch.common.types import UNetConfig, added_cond_dim
 from repro_torch.core import sampler as SM
 
 #: slot cap on one ring's published key table (``slot_summary`` /
@@ -62,9 +62,20 @@ class CacheState:
         return self.f_sk.shape[0]
 
 
-def prompt_signature(ctx: np.ndarray) -> np.ndarray:
-    """Pooled prompt-embedding signature used as the cache key ([ctx_dim])."""
-    return np.asarray(ctx, np.float32).mean(axis=0)
+def prompt_signature(ctx: np.ndarray, pooled: np.ndarray | None = None) -> np.ndarray:
+    """Pooled prompt-embedding signature used as the cache key: [ctx_dim],
+    then the pooled prompt vector where the request has one ([ctx_dim +
+    pooled_dim], :func:`sig_dim`).  The time ids are in the key's exact
+    part (``GenRequest.cache_offset``)."""
+    sig = np.asarray(ctx, np.float32).mean(axis=0)
+    if pooled is None:
+        return sig
+    return np.concatenate([sig, np.asarray(pooled, np.float32)])
+
+
+def sig_dim(ucfg: UNetConfig) -> int:
+    """Width of :func:`prompt_signature` for ``ucfg``'s requests."""
+    return ucfg.ctx_dim + (ucfg.pooled_dim if added_cond_dim(ucfg) else 0)
 
 
 def signature_distance(sig: np.ndarray, ref: np.ndarray) -> float:
@@ -482,7 +493,7 @@ class FeatureCache(SlotRing):
         self._rf_shape = (n_slots, 2) + SM.feat_shape(ucfg, e_rf, 1)[1:]
         self._device = device
         super().__init__(
-            n_slots, ucfg.ctx_dim, threshold=threshold, t_bucket=t_bucket, mode=mode
+            n_slots, sig_dim(ucfg), threshold=threshold, t_bucket=t_bucket, mode=mode
         )
         self.spill: SpillRing | None = None
         if spill_mb > 0:
@@ -623,7 +634,7 @@ class ShardedFeatureCache:
         self.threshold = threshold
         self.t_bucket = t_bucket
         self.rings = [
-            SlotRing(slots_per_shard, ucfg.ctx_dim, threshold=threshold, t_bucket=t_bucket,
+            SlotRing(slots_per_shard, sig_dim(ucfg), threshold=threshold, t_bucket=t_bucket,
                      mode=mode)
             for _ in devices
         ]

@@ -26,6 +26,7 @@ their slots; :func:`make_serving_engine` picks the engine for
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Any, Callable, Sequence
 
@@ -35,7 +36,7 @@ import torch
 from repro_torch.common import trace as T
 from repro_torch.common.sharding import lane_devices, resolve_device
 from repro_torch.common.tree import tree_map
-from repro_torch.common.types import DiffusionConfig, PASPlan, UNetConfig
+from repro_torch.common.types import DiffusionConfig, PASPlan, UNetConfig, added_cond_dim
 from repro_torch.core import sampler as SM
 from repro_torch.models import diffusion as D
 from repro_torch.models import unet as U
@@ -53,6 +54,25 @@ Params = dict[str, Any]
 CACHE_MIN_STEP = 1
 
 
+def default_time_ids(ucfg: UNetConfig) -> np.ndarray:
+    """SDXL's time ids for an uncropped image of the U-Net's own size
+    (8 pixels a latent cell, the published VAE's): original height and
+    width, crop top and left, target height and width."""
+    if ucfg.n_time_ids != 6:
+        raise ValueError(f"the U-Net {ucfg.name} takes {ucfg.n_time_ids} time ids, not SDXL's 6")
+    side = 8.0 * ucfg.latent_size
+    return np.array([side, side, 0.0, 0.0, side, side], np.float32)
+
+
+def added_conditioning(ucfg: UNetConfig, rng: np.random.Generator) -> dict[str, np.ndarray]:
+    """A synthetic request's ``pooled`` vector (normal, drawn from ``rng``)
+    and :func:`default_time_ids`, where the U-Net takes them; {} otherwise."""
+    if not added_cond_dim(ucfg):
+        return {}
+    return dict(pooled=rng.normal(size=(ucfg.pooled_dim,)).astype(np.float32),
+                time_ids=default_time_ids(ucfg))
+
+
 @dataclasses.dataclass(eq=False)  # identity semantics: queues remove by object
 class GenRequest:
     """One conditioned generation request (txt2img, img2img or inpaint).
@@ -62,7 +82,9 @@ class GenRequest:
     from; ``timesteps < base_timesteps`` is a strength truncation) and
     ``init_latent`` (the known image, noised to the entry timestep at
     submission).  An inpaint request carries ``mask`` (1 = generate, 0 =
-    keep ``init_latent``; blended every micro-step).
+    keep ``init_latent``; blended every micro-step).  A U-Net with SDXL's
+    added conditioning (``types.added_cond_dim``) takes ``pooled`` and
+    ``time_ids`` too; any other refuses them.
     """
 
     rid: int
@@ -82,6 +104,10 @@ class GenRequest:
     mask: np.ndarray | None = None
     #: untruncated schedule length; None = ``timesteps`` (no truncation)
     base_timesteps: int | None = None
+    #: [pooled_dim] pooled prompt vector and [n_time_ids] time ids (original
+    #: size, crop top-left, target size) where the U-Net takes them
+    pooled: np.ndarray | None = None
+    time_ids: np.ndarray | None = None
 
     _lane_plan: LN.LanePlan | None = dataclasses.field(default=None, repr=False)
     _sig: np.ndarray | None = dataclasses.field(default=None, repr=False)
@@ -99,6 +125,16 @@ class GenRequest:
         the stock schedule); warm hits never cross different offsets."""
         base = self.timesteps if self.base_timesteps is None else self.base_timesteps
         return base - self.timesteps
+
+    @property
+    def cache_offset(self) -> int:
+        """The exact part of the request's cache key: the schedule offset,
+        and a digest of the time ids where the request has them, so warm
+        hits never cross different offsets or different time ids."""
+        if self.time_ids is None:
+            return self.sched_offset
+        digest = hashlib.sha256(np.asarray(self.time_ids, np.float32).tobytes()).digest()
+        return self.sched_offset + (int.from_bytes(digest[:5], "little") << 16)
 
     @property
     def quality_tier(self) -> str:
@@ -307,6 +343,19 @@ class DiffusionEngine:
                     f"({req.plan.l_sketch}, {req.plan.l_refine}) does not match "
                     f"engine ({self.config.l_sketch}, {self.config.l_refine})"
                 )
+        takes = added_cond_dim(self.ucfg) > 0
+        for name in ("pooled", "time_ids"):
+            value = getattr(req, name)
+            if not takes:
+                if value is not None:
+                    raise ValueError(f"{name}: the U-Net {self.ucfg.name} takes no {name}")
+                continue
+            shape = (self.ucfg.pooled_dim if name == "pooled" else self.ucfg.n_time_ids,)
+            if value is None or np.shape(value) != shape:
+                raise ValueError(
+                    f"{name}: the U-Net {self.ucfg.name} needs {name} of shape {list(shape)}, "
+                    f"got {None if value is None else list(np.shape(value))}"
+                )
         if req.policy is not None and not isinstance(req.policy, ResolvedPolicy):
             raise TypeError(f"policy must be a ResolvedPolicy, got {type(req.policy).__name__}")
         threshold = (
@@ -350,7 +399,7 @@ class DiffusionEngine:
             req._entry = entry.numpy()
         else:
             req._entry = req.noise
-        req._sig = prompt_signature(req.ctx)
+        req._sig = prompt_signature(req.ctx, req.pooled)
         self.metrics.record_submission(req.quality_tier)
         self.scheduler.add(req)
 
@@ -366,7 +415,11 @@ class DiffusionEngine:
             if x_init is None:
                 x_init = np.zeros(req.noise.shape, np.float32)
             extras = (to(req.mask), to(x_init), to(req.noise))
-        self._admit(self._state, lane, to(req._entry), to(req.ctx), req._lane_plan, *extras)
+        added = {}
+        if req.pooled is not None:
+            added = dict(pooled=to(req.pooled), time_ids=to(req.time_ids))
+        self._admit(self._state, lane, to(req._entry), to(req.ctx), req._lane_plan, *extras,
+                    **added)
         self._lane_req[lane] = req
         self._lane_step[lane] = 0
         self._lane_admit_s[lane] = now_s
@@ -443,7 +496,7 @@ class DiffusionEngine:
         if cache is None or cache.spill is None or not req.allow_cache:
             return
         at = () if shard is None else (shard,)
-        lp, sig, off = req._lane_plan, req._sig, req.sched_offset
+        lp, sig, off = req._lane_plan, req._sig, req.cache_offset
         for i in range(lp.n_steps):
             if lp.branches[i] != SM.FULL or i < CACHE_MIN_STEP:
                 continue
@@ -494,7 +547,7 @@ class DiffusionEngine:
             step = self._lane_step[lane]
             hit = self.cache.probe_distance(
                 *self._ring_of(lane), int(req._lane_plan.ts[step]), req._sig, req.rid,
-                float(req._lane_plan.thr[step]), req.sched_offset,
+                float(req._lane_plan.thr[step]), req.cache_offset,
             )
             if hit is not None:
                 hits[lane] = hit
@@ -553,7 +606,7 @@ class DiffusionEngine:
             return None
         slot = self.cache.reserve(
             *ring, int(req._lane_plan.ts[step]), req._sig, req.rid, exclude=taken,
-            offset=req.sched_offset,
+            offset=req.cache_offset,
         )
         if slot is not None:
             taken.add(slot)
@@ -988,6 +1041,9 @@ class StaticServer:
         backend: str | None = None,
         device: str = "cuda",
     ):
+        if added_cond_dim(ucfg):
+            raise ValueError(f"StaticServer serves no added conditioning ({ucfg.name}); "
+                             "use the continuous engine")
         self.ucfg, self.dcfg, self.params, self.batch = ucfg, dcfg, params, batch
         self.plan_fn = plan_fn
         self.device = torch_device(device)

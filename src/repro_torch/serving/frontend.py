@@ -86,7 +86,7 @@ import numpy as np
 from repro_torch.common.types import PASPlan
 from repro_torch.models import unet as U
 from repro_torch.serving.driver import TERMINAL_EVENTS, EngineDriver, SubmitRejected
-from repro_torch.serving.engine import GenRequest
+from repro_torch.serving.engine import GenRequest, added_conditioning
 from repro_torch.serving.http import (
     DEPRECATION_HEADER,
     chunk,
@@ -228,6 +228,7 @@ class RequestFactory:
         mix = int.from_bytes(hashlib.sha256(spec.prompt.encode()).digest()[:8], "little")
         rng = np.random.default_rng((spec.seed, mix))
         ctx = rng.normal(size=(self.ucfg.ctx_len, self.ucfg.ctx_dim)).astype(np.float32) * 0.2
+        added = added_conditioning(self.ucfg, rng)  # SDXL: pooled from the same stream
         noise = rng.normal(size=(L, self.ucfg.in_channels)).astype(np.float32)
 
         if spec.task == "variations":
@@ -250,6 +251,7 @@ class RequestFactory:
                     plan=pol.plan,
                     allow_cache=spec.allow_cache,
                     policy=pol,
+                    **added,
                 )
                 for rid, nz in zip(rids, noises)
             ]
@@ -276,6 +278,7 @@ class RequestFactory:
             init_latent=init_latent,
             mask=mask,
             base_timesteps=spec.base_timesteps,
+            **added,
         )
         return [req], None, spec
 

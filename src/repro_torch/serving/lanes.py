@@ -9,9 +9,10 @@ given and return nothing.
 Layout (unchanged from the JAX package):
 
 * ``x`` is [N, L, C], the PNDM ring [N, 4, L, C];
-* the sketch/refine feature caches and the conditioning keep the
-  CFG-doubled ``[2N, ...]`` layout of :func:`cfg_unet_step`: rows ``i`` and
-  ``N + i`` belong to lane ``i``;
+* the sketch/refine feature caches and the conditioning (``ctx2``, and
+  ``pooled2`` / ``time_ids2`` for a U-Net with SDXL's added conditioning,
+  None otherwise) keep the CFG-doubled ``[2N, ...]`` layout of
+  :func:`cfg_unet_step`: rows ``i`` and ``N + i`` belong to lane ``i``;
 * plans are padded to ``max_steps``; ``step[i] < n_steps[i]`` marks a live
   lane, and an empty lane has ``n_steps == 0`` and all-zero tensors;
 * ``thr`` holds each lane's per-step cache threshold (the quality policy's
@@ -32,7 +33,7 @@ import torch
 
 from repro_torch.common import trace as T
 from repro_torch.common.sharding import device_guard
-from repro_torch.common.types import DiffusionConfig, PASPlan, UNetConfig
+from repro_torch.common.types import DiffusionConfig, PASPlan, UNetConfig, added_cond_dim
 from repro_torch.core import sampler as SM
 from repro_torch.models import diffusion as D
 from repro_torch.models.backend import resolve_backend
@@ -65,6 +66,11 @@ class LaneState:
     mask: torch.Tensor
     x_init: torch.Tensor  # [N, L, C] known latent under the mask
     noise0: torch.Tensor  # [N, L, C] noise re-noising the known region
+    #: [2N, pooled_dim] pooled prompt vector (uncond rows 0) and [2N,
+    #: n_time_ids] time ids (the same in both rows); None for a U-Net
+    #: without added conditioning
+    pooled2: torch.Tensor | None = None
+    time_ids2: torch.Tensor | None = None
 
     @property
     def n_lanes(self) -> int:
@@ -129,6 +135,7 @@ def init_lanes(
         return torch.zeros(shape, dtype=dtype, device=device)
 
     i64 = torch.int64
+    added = added_cond_dim(ucfg) > 0
     return LaneState(
         x=z(n_lanes, L, c),
         ets=z(n_lanes, 4, L, c),
@@ -145,6 +152,8 @@ def init_lanes(
         mask=torch.ones((n_lanes, L, 1), device=device),
         x_init=z(n_lanes, L, c),
         noise0=z(n_lanes, L, c),
+        pooled2=z(2 * n_lanes, ucfg.pooled_dim) if added else None,
+        time_ids2=z(2 * n_lanes, ucfg.n_time_ids) if added else None,
     )
 
 
@@ -157,9 +166,12 @@ def admit(
     mask: torch.Tensor | None = None,  # [L, 1] inpaint mask; None = all ones
     x_init: torch.Tensor | None = None,  # [L, C] known latent; None = zeros
     noise0: torch.Tensor | None = None,  # [L, C] known-region noise; None = zeros
+    pooled: torch.Tensor | None = None,  # [pooled_dim] where the lanes hold it
+    time_ids: torch.Tensor | None = None,  # [n_time_ids] where the lanes hold them
 ) -> None:
     """Scatter one request into an (empty) lane, resetting its sampler state,
-    in place."""
+    in place.  The unconditional row takes a zero pooled vector and the
+    request's own time ids (SDXL's empty-prompt convention)."""
     n = state.n_lanes
     dev = state.x.device
     state.x[lane] = noise
@@ -170,6 +182,11 @@ def admit(
         f[n + lane] = 0.0
     state.ctx2[lane] = ctx
     state.ctx2[n + lane] = 0.0
+    if state.pooled2 is not None:
+        state.pooled2[lane] = pooled
+        state.pooled2[n + lane] = 0.0
+        state.time_ids2[lane] = time_ids
+        state.time_ids2[n + lane] = time_ids
     state.branches[lane] = torch.from_numpy(plan.branches).to(dev)
     state.ts[lane] = torch.from_numpy(plan.ts).to(dev)
     state.t_prev[lane] = torch.from_numpy(plan.t_prev).to(dev)
@@ -200,10 +217,12 @@ class _Batch(NamedTuple):
     f_sk: torch.Tensor
     f_rf: torch.Tensor
     ctx2: torch.Tensor
+    pooled2: torch.Tensor | None
+    time_ids2: torch.Tensor | None
 
 
 #: the :class:`_Batch` fields in the CFG-doubled layout
-_ROW_FIELDS = ("f_sk", "f_rf", "ctx2")
+_ROW_FIELDS = ("f_sk", "f_rf", "ctx2", "pooled2", "time_ids2")
 
 
 def make_micro_step(
@@ -268,22 +287,24 @@ def make_micro_step(
                 entry_sk = select_entry_features(b.f_sk, cache.f_sk, src, use)
 
         f_sk_new, f_rf_new = b.f_sk, b.f_rf
+        added = dict(pooled2=b.pooled2, time_ids2=b.time_ids2)
         if b_star == SM.FULL:
             eps, cap = SM.cfg_unet_step(
-                ucfg, params, guidance, b.x, t, b.ctx2, capture=(e_sk, e_rf), backend=bk
+                ucfg, params, guidance, b.x, t, b.ctx2, capture=(e_sk, e_rf), backend=bk,
+                **added,
             )
             f_sk_new, f_rf_new = cap[e_sk], cap[e_rf]
         elif b_star == SM.SKETCH:
             eps, _ = SM.cfg_unet_step(
                 ucfg, params, guidance, b.x, t, b.ctx2,
-                entry_step=e_sk, entry_feat=entry_sk, backend=bk,
+                entry_step=e_sk, entry_feat=entry_sk, backend=bk, **added,
             )
             # the selection becomes the lane's features of record
             f_sk_new, f_rf_new = entry_sk, entry_rf
         else:
             eps, _ = SM.cfg_unet_step(
                 ucfg, params, guidance, b.x, t, b.ctx2,
-                entry_step=e_rf, entry_feat=entry_rf, backend=bk,
+                entry_step=e_rf, entry_feat=entry_rf, backend=bk, **added,
             )
 
         if use_pndm:
@@ -338,7 +359,7 @@ def make_micro_step(
                 state.f_rf.copy_(torch.where(sel2, f_rf_new, state.f_rf))
             else:
                 rows = torch.cat([lanes, lanes + n])
-                b = _Batch(*(getattr(state, f).index_select(0, rows if f in _ROW_FIELDS else lanes)
+                b = _Batch(*(_gather(getattr(state, f), rows if f in _ROW_FIELDS else lanes)
                              for f in _Batch._fields))
                 if use is not None:
                     feat_src, use = feat_src.index_select(0, lanes), use.index_select(0, lanes)
@@ -352,6 +373,10 @@ def make_micro_step(
         state.step += sel.to(state.step.dtype)
 
     return micro_step
+
+
+def _gather(t: torch.Tensor | None, index: torch.Tensor) -> torch.Tensor | None:
+    return None if t is None else t.index_select(0, index)
 
 
 def _lanes(sel: torch.Tensor, n_advanced: int | None, n_computed: int) -> tuple[int, int]:
@@ -402,17 +427,19 @@ def init_sharded_lanes(
 
 def make_sharded_admit():
     """:func:`admit` on the lane's own shard, its tensors moved to the
-    shard's device: ``admit(state, lane, noise, ctx, plan, mask, x_init, noise0)``."""
+    shard's device: ``admit(state, lane, noise, ctx, plan, mask, x_init, noise0,
+    pooled=, time_ids=)``."""
 
     def admit_sharded(
         state: ShardedLaneState, lane: int, noise, ctx, plan: LanePlan,
-        mask=None, x_init=None, noise0=None,
+        mask=None, x_init=None, noise0=None, pooled=None, time_ids=None,
     ) -> None:
         s, i = state.locate(lane)
         shard = state.shards[s]
         dev = shard.x.device
         to = lambda t: None if t is None else t.to(dev)  # noqa: E731
-        admit(shard, i, to(noise), to(ctx), plan, to(mask), to(x_init), to(noise0))
+        admit(shard, i, to(noise), to(ctx), plan, to(mask), to(x_init), to(noise0),
+              pooled=to(pooled), time_ids=to(time_ids))
 
     return admit_sharded
 

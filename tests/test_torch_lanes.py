@@ -56,8 +56,8 @@ def _one_torch_thread():
 
 
 def _clone(state: LN.LaneState) -> LN.LaneState:
-    return LN.LaneState(**{f.name: getattr(state, f.name).clone()
-                           for f in dataclasses.fields(state)})
+    return LN.LaneState(**{f.name: None if getattr(state, f.name) is None
+                           else getattr(state, f.name).clone() for f in dataclasses.fields(state)})
 
 
 def _sel(lanes, n: int = N) -> torch.Tensor:

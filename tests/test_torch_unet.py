@@ -78,13 +78,20 @@ def jax_full(weights, inputs):
     return full(weights[0], jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx))
 
 
+#: the port's UNetConfig fields the JAX package's lacks, at the values that
+#: keep a config the JAX package's (sdxl_base sets them)
+PORT_ONLY = dict(tf_depths=None, head_dim=None, pooled_dim=0, n_time_ids=0, time_id_dim=0)
+
+
 def test_config_and_plans_match():
     assert TOY == get_unet_config("sd_toy")
     for name in ("sd_toy", "sd_v14", "sd_xl"):
         jc, tc = j_get_unet_config(name), get_unet_config(name)
-        assert {f: getattr(tc, f) for f in tc.__dataclass_fields__} == {
+        assert {f: getattr(tc, f) for f in jc.__dataclass_fields__} == {
             f: getattr(jc, f) for f in jc.__dataclass_fields__
         }
+        assert set(tc.__dataclass_fields__) == set(jc.__dataclass_fields__) | set(PORT_ONLY)
+        assert {f: getattr(tc, f) for f in PORT_ONLY} == PORT_ONLY
         assert TU._down_plan(tc) == JU._down_plan(jc)
         assert TU._up_plan(tc) == JU._up_plan(jc)
 
